@@ -1,0 +1,549 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+Run from the repository root, with no arguments:  python3 chip_smoke.py
+
+Phases, one line or more each; any failure raises and exits non-zero:
+  1. build   compile every CUDA source under src/repro_torch/kernels/csrc
+             (one nvcc per source, all at once) into build/;
+  2. kernels each kernel against its plain PyTorch version on the card, at
+             the main path's shapes: color_step in f32 and f64 with a dead
+             row and dropped messages, and at D = 40 (lanes beyond a warp)
+             in f64 and in f32 against an f64 witness, knn_fuse in f32,
+             f64 and with bf16 anchors (identical selected sets),
+             kernel_matvec for one and for B fields; then each kernel's
+             time, its plain version's time, one PyTorch library call's
+             time where there is one, and the least time the card could
+             take (``bound_ms``);
+  3. main    the port's launcher at the benched geometry (n=1000 sensors in
+             d=2, radius 0.3*sqrt(100/n), rbf gamma=1, lambda=0.1, B=16
+             fields, 30 colored sweeps with the CUDA color step, kNN k=3 and
+             conn serving of Q=4096 queries), with every launch counter set
+             to 0 before and read after; then the same pipeline through the
+             plain engines on the card, compared end to end;
+  4. report  the kernels JSON line, the card's name and power limit, and
+             the final {"ok": true, ...} line.
+
+Tolerances are the reference's own.  Per launch, on identical inputs:
+color_step z 1e-5 and coef 1e-3 in f32 (tests/test_scatter_plan.py),
+1e-10 in f64 (at D = 40 in f32, where the rounding of either version
+exceeds 1e-5, both are held to an f64 evaluation of the same inputs and
+the kernel's error may be at most WITNESS_FACTOR times the plain
+version's); knn_fuse 1e-5 (tests/test_serving.py), 1e-10 in f64;
+kernel_matvec 2e-5 absolute and relative (tests/test_kernels_pallas.py).
+End to end, after 30 sweeps in which kernel and plan engine sum in
+different orders, the two realizations drift apart by f32 rounding (the
+same 30 sweeps in f64 must agree within 1e-10, which shows the math is
+the same); the f32 drift is bounded as the reference bounds its own two
+realizations of one sweep with different reduction orders
+(tests/test_scatter_plan.py, sharded transport: z 2e-4, coef 2e-2), kNN
+answers at the z bound, conn answers at 2e-5.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM3 bytes/s,
+# float32 and float64 FLOP/s outside the tensor cores.
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def max_err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean milliseconds per call of ``fn`` over ``reps`` back-to-back calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds per call of ``fn``, replayed from a CUDA graph.
+
+    Capturing the launches removes the Python wrapper's host time, so this
+    is the kernels' own time on the card (``cuda_ms`` of the wrapper call
+    is reported beside it as ``call_ms``).
+    """
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps)
+
+
+def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
+    """(ms, "bytes" | "operations"): the larger of the two floors."""
+    t_b, t_o = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def main_args():
+    from repro_torch.launch import serve
+
+    n = 1000
+    argv = ["--mode", "field", "--device", "cuda", "--fields", "16", "--sensors", str(n),
+            "--dim", "2", "--radius", repr(0.3 * (100.0 / n) ** 0.5), "--gamma", "1.0",
+            "--lam", "0.1", "--sweeps", "30", "--queries", "4096", "--fusion", "knn", "conn",
+            "--k", "3", "--engine", "cuda", "--seed", "0"]
+    return argv, serve.parser().parse_args(argv)
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: each kernel against its plain version, then timed.
+# ---------------------------------------------------------------------------
+
+
+def gated_inputs(torch, prob):
+    """A trained state, a dead row and 30% of messages dropped."""
+    from repro_torch.core import colored_sweep, init_state
+
+    st = colored_sweep(prob, init_state(prob), n_sweeps=2, engine="plan")
+    alive = prob.alive.clone()
+    alive[7] = False  # a dead row
+    rng = np.random.default_rng(1)
+    deliv = torch.as_tensor(rng.uniform(size=tuple(prob.nbr_idx.shape)) >= 0.3,
+                            device=prob.device)  # 30% of messages dropped
+    return st.z.clone(), st.coef.clone(), alive, alive[prob.layout.slot_owner], deliv
+
+
+def check_color_step(torch, prob, label: str):
+    """Every color of one sweep, kernel vs plain on identical inputs."""
+    from repro_torch.kernels import color_step as cs
+
+    z, coef, alive, alive_z, deliv = gated_inputs(torch, prob)
+    err_z = err_c = 0.0
+    for c in range(prob.color_members.shape[0]):
+        args = (prob.nbr_idx, prob.nbr_mask, prob.gram, prob.chol, prob.lam_pad, alive,
+                alive_z, prob.color_members[c], prob.color_mask[c], deliv)
+        zk, ck = z.clone(), coef.clone()
+        cs.color_step(zk, ck, *args)
+        cs.color_step_ref(z, coef, *args)
+        torch.cuda.synchronize()
+        err_z, err_c = max(err_z, max_err(zk, z)), max(err_c, max_err(ck, coef))
+    tol_z, tol_c = (1e-5, 1e-3) if prob.gram.dtype == torch.float32 else (1e-10, 1e-10)
+    check(err_z <= tol_z and err_c <= tol_c,
+          f"color_step {label}: z err {err_z:.3g} (tol {tol_z}), coef err {err_c:.3g}")
+    check(float(z[:, -1].abs().max()) == 0.0, "color_step wrote the sentinel slot")
+    print(f"kernels: color_step {label} ok: B={prob.batch_size} D={prob.nbr_idx.shape[1]} "
+          f"{prob.color_members.shape[0]} colors, dead row + 30% drops, "
+          f"max |dz| {err_z:.3g}, max |dcoef| {err_c:.3g}")
+    return err_z
+
+
+# The f32 kernel's error against an f64 evaluation of the same inputs may be
+# at most this multiple of the f32 plain version's own error against it.
+WITNESS_FACTOR = 4.0
+
+
+def check_color_step_witness(torch, prob, label: str) -> None:
+    """f32 kernel and f32 plain version, both against an f64 witness.
+
+    Where the local systems are dense and badly conditioned, the f32
+    rounding of any realization exceeds the per-step 1e-5, so the two f32
+    versions are not held to each other: each is held to the plain version
+    evaluated in f64 on the same (f32) inputs, and the kernel's error may be
+    at most WITNESS_FACTOR times the plain version's.
+    """
+    from repro_torch.kernels import color_step as cs
+
+    z, coef, alive, alive_z, deliv = gated_inputs(torch, prob)
+    gram64, chol64, lam64 = prob.gram.double(), prob.chol.double(), prob.lam_pad.double()
+    ek = {"z": 0.0, "coef": 0.0}
+    ep = {"z": 0.0, "coef": 0.0}
+    for c in range(prob.color_members.shape[0]):
+        gates = (alive, alive_z, prob.color_members[c], prob.color_mask[c], deliv)
+        zk, ck = z.clone(), coef.clone()
+        z64, coef64 = z.double(), coef.double()
+        cs.color_step(zk, ck, prob.nbr_idx, prob.nbr_mask, prob.gram, prob.chol,
+                      prob.lam_pad, *gates)
+        cs.color_step_ref(z64, coef64, prob.nbr_idx, prob.nbr_mask, gram64, chol64, lam64,
+                          *gates)
+        cs.color_step_ref(z, coef, prob.nbr_idx, prob.nbr_mask, prob.gram, prob.chol,
+                          prob.lam_pad, *gates)
+        torch.cuda.synchronize()
+        for key, kern, plain, wit in (("z", zk, z, z64), ("coef", ck, coef, coef64)):
+            ek[key] = max(ek[key], max_err(kern, wit))
+            ep[key] = max(ep[key], max_err(plain, wit))
+    ratio = {key: ek[key] / ep[key] if ep[key] > 0 else float(ek[key] > 0) for key in ek}
+    readings = ", ".join(f"{key}: kernel {ek[key]:.3g}, plain {ep[key]:.3g}, "
+                         f"ratio {ratio[key]:.3g}" for key in ek)
+    check(all(ek[key] <= WITNESS_FACTOR * ep[key] for key in ek),
+          f"color_step {label}: error against the f64 witness beyond "
+          f"{WITNESS_FACTOR} x the plain version's ({readings})")
+    print(f"kernels: color_step {label} ok: D={prob.nbr_idx.shape[1]}, dead row + 30% drops, "
+          f"max error against the f64 witness (tol {WITNESS_FACTOR} x plain) {readings}")
+
+
+def check_sweep_f64(torch, prob, sweeps: int) -> float:
+    """The main path's whole training in f64, kernel engine vs plan engine.
+
+    In f64 the two summation orders agree to ~1e-13, so the f32 drift the
+    end-to-end check allows is rounding, not a difference in the math.
+    """
+    from repro_torch.core import colored_sweep, init_state
+
+    st0 = init_state(prob)
+    a = colored_sweep(prob, st0, n_sweeps=sweeps, engine="cuda")
+    b = colored_sweep(prob, st0, n_sweeps=sweeps, engine="plan")
+    err_z, err_c = max_err(a.z, b.z), max_err(a.coef, b.coef)
+    check(err_z <= 1e-10 and err_c <= 1e-10,
+          f"f64 sweep: kernel vs plan max |dz| {err_z:.3g}, |dcoef| {err_c:.3g} (tol 1e-10)")
+    print(f"kernels: colored_sweep float64, {sweeps} sweeps, cuda vs plan engine ok: "
+          f"max |dz| {err_z:.3g}, max |dcoef| {err_c:.3g}")
+    return err_z
+
+
+def wide_problem(torch, dtype):
+    """Neighborhoods wider than a warp: up to 36 neighbors in D = 40 lanes."""
+    from repro_torch.core import Kernel, build_topology, make_batch_problem, uniform_sensors
+
+    pos = uniform_sensors(300, d=2, seed=5)
+    topo = build_topology(pos, 0.33, d_max=40, device="cuda")
+    ys = np.sin(np.pi * pos[None, :, 0]) + np.random.default_rng(6).normal(size=(2, 300))
+    prob = make_batch_problem(topo, Kernel("rbf", gamma=1.0), ys, np.full(300, 0.1),
+                              dtype=dtype, device="cuda")
+    max_deg = int(prob.topology.degrees.max())
+    check(prob.nbr_idx.shape[1] == 40 > max_deg > 32, f"wide problem: max degree {max_deg}")
+    return prob
+
+
+def color_step_bound(torch, prob, alive, alive_z) -> tuple[float, str]:
+    """Mean over the colors of one sweep of the least time one launch needs.
+
+    Counted from each live (field, member)'s real lanes g (its nbr_mask)
+    and the s of them that send (target slot alive): the lower triangle of
+    its factor restricted to those lanes, g(g+1)/2; the gram rows of the
+    sending lanes, s*g; z and coef read on the s lanes, coef written on g,
+    z written on s; the mask bytes of g lanes.  Per member: its g slot ids
+    and their liveness bytes, its id, two liveness bytes and lambda.
+    Padded lanes are left out: their factor is the identity, their
+    coefficient stays 0, and what they send is 0 into a slot that holds 0.
+    Operations per (field, member): two triangular solves 2 g^2, the rhs
+    2 s, the evaluation 2 s g.
+    """
+    e = prob.gram.element_size()
+    dt = str(prob.gram.dtype).split(".")[1]
+    live = prob.color_mask & alive[prob.color_members]  # (C, M)
+    idx = prob.nbr_idx[prob.color_members]  # (C, M, D)
+    real = prob.nbr_mask[:, prob.color_members] & live[None, :, :, None]  # (B, C, M, D)
+    send = real & alive_z[idx][None]
+    g = real.sum(-1).double()  # (B, C, M)
+    s = send.sum(-1).double()
+    per_field = e * (g * (g + 1) / 2 + s * g + 2 * s + g + s) + g
+    g_member = real.any(0).sum(-1).double()  # (C, M) lanes of a member in any field
+    per_member = live.double() * (4 + 1 + 1 + e) + g_member * (4 + 1)
+    nbytes = per_field.sum(dim=(0, 2)) + per_member.sum(-1)  # (C,)
+    flops = (2 * g * g + 2 * s + 2 * s * g).sum(dim=(0, 2))
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dt] * 1e3
+    by = "bytes" if float(t_bytes.sum()) >= float(t_ops.sum()) else "operations"
+    return float(torch.maximum(t_bytes, t_ops).mean()), by
+
+
+def time_color_step(torch, prob) -> dict:
+    from repro_torch.core import colored_sweep, init_state
+    from repro_torch.kernels import color_step as cs
+
+    st = colored_sweep(prob, init_state(prob), n_sweeps=2, engine="plan")
+    alive, alive_z = prob.alive, prob.alive_z
+    n_colors = prob.color_members.shape[0]
+    z, coef = st.z.clone(), st.coef.clone()
+
+    def sweep(fn):
+        def run():
+            for c in range(n_colors):
+                fn(z, coef, prob.nbr_idx, prob.nbr_mask, prob.gram, prob.chol,
+                   prob.lam_pad, alive, alive_z, prob.color_members[c], prob.color_mask[c])
+        return run
+
+    ms = graph_ms(sweep(cs.color_step)) / n_colors
+    call_ms = cuda_ms(sweep(cs.color_step)) / n_colors
+    plain_ms = cuda_ms(sweep(cs.color_step_ref), reps=5) / n_colors
+    t_bound, by = color_step_bound(torch, prob, alive, alive_z)
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=t_bound,
+                bound_by=by, library_ms=None, launches_per_sweep=n_colors)
+
+
+def knn_inputs(torch, prob, state, q: int, seed: int):
+    from repro_torch.core import make_serving_plan, serving, effective_coef
+
+    plan = make_serving_plan(prob, k=3)
+    rng = np.random.default_rng(seed)
+    pos = prob.topology.positions.cpu().numpy()
+    xq = torch.as_tensor(rng.uniform(pos.min(0), pos.max(0), size=(q, pos.shape[1])),
+                         dtype=prob.nbr_pos.dtype, device=prob.device)
+    positions = prob.topology.positions.to(xq.dtype)
+    spos = torch.cat([positions, positions.new_zeros((1, xq.shape[1]))])
+    alive = prob.alive.clone()
+    alive[11] = False  # a dead sensor drops out of selection
+    return (xq, serving.query_cells(plan, xq), plan.cells, plan.cell_mask, spos,
+            prob.nbr_pos, prob.nbr_mask, effective_coef(prob, state)), alive, plan
+
+
+def check_knn(torch, prob, state, anchor_dtype, label: str) -> float:
+    from repro_torch.kernels import knn_fuse as kf
+
+    ins, alive, _ = knn_inputs(torch, prob, state, 4096, seed=2)
+    nbr_pos = ins[5] if anchor_dtype is None else ins[5].to(anchor_dtype)
+    ins = ins[:5] + (nbr_pos,) + ins[6:]
+    out, sel = kf.knn_fuse_fused(*ins, alive=alive, gamma=prob.kernel.gamma, k=3,
+                                 with_selection=True)
+    q = ins[0].shape[0]
+    ref, ref_sel = kf.knn_fuse_ref(*ins[:4], alive, *ins[4:], gamma=prob.kernel.gamma, k=3)
+    torch.cuda.synchronize()
+    check(torch.equal(sel, ref_sel), f"knn_fuse {label}: selected sets differ")
+    check(out.dtype == ins[-1].dtype and out.shape == (prob.batch_size, q),
+          f"knn_fuse {label}: output {out.dtype} {tuple(out.shape)}")
+    err = max_err(out, ref)
+    tol = 1e-5 if out.dtype == torch.float32 else 1e-10
+    check(bool(torch.isfinite(out).all()) and err <= tol,
+          f"knn_fuse {label}: max err {err:.3g} (tol {tol})")
+    print(f"kernels: knn_fuse {label} ok: Q={q} k=3, identical selections "
+          f"({int((sel >= 0).sum())} picks), max |err| {err:.3g}")
+    return err
+
+
+def time_knn(torch, prob, state) -> dict:
+    from repro_torch.kernels import knn_fuse as kf
+
+    ins, alive, plan = knn_inputs(torch, prob, state, 4096, seed=3)
+    g = prob.kernel.gamma
+    ms = graph_ms(lambda: kf.knn_fuse_fused(*ins, alive=alive, gamma=g, k=3))
+    call_ms = cuda_ms(lambda: kf.knn_fuse_fused(*ins, alive=alive, gamma=g, k=3))
+    plain_ms = cuda_ms(lambda: kf.knn_fuse_ref(*ins[:4], alive, *ins[4:], gamma=g, k=3),
+                       reps=5)
+    _, sel = kf.knn_fuse_fused(*ins, alive=alive, gamma=g, k=3, with_selection=True)
+    xq, _, cells, cmask, spos, nbr_pos, nbr_mask, coef = ins
+    q, d = xq.shape
+    b, r, dm, _ = nbr_pos.shape
+    s = coef.element_size()
+    picked = int(torch.unique(sel[sel >= 0]).numel())  # rows this run's queries need
+    nbytes = (q * (d * s + 4) + cells.numel() * 5 + r * (1 + d * s)
+              + b * picked * dm * (d * nbr_pos.element_size() + 1 + s) + b * q * s)
+    flops = q * cells.shape[1] * 3 * d + b * int((sel >= 0).sum()) * dm * (3 * d + 4)
+    t, by = bound(nbytes, flops, str(coef.dtype).split(".")[1])
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=t, bound_by=by,
+                library_ms=None)
+
+
+def conn_inputs(torch, prob, state, xq):
+    from repro_torch.core import fusion
+
+    anchors, coefs = fusion.global_coefficients(prob, state, rule="conn")
+    return xq.to(torch.float32).contiguous(), anchors.contiguous(), coefs.contiguous()
+
+
+def check_matvec(torch, prob, state, xq) -> float:
+    from repro_torch.kernels import kernel_matvec as km
+    from repro_torch.kernels.ops import kernel_matvec
+
+    g = prob.kernel.gamma
+    xq32, anchors, coefs = conn_inputs(torch, prob, state, xq)
+    multi = kernel_matvec(xq32, anchors, coefs, gamma=g)
+    ref = km.kernel_matvec_ref(xq32, anchors, coefs, g)
+    err_m = max_err(multi, ref)
+    rel_m = float(((multi - ref).abs() - 2e-5 * ref.abs()).max())
+    # one field (B = 1, the centralized-predict body): sensor anchors, random coefs
+    pos = prob.topology.positions
+    c1 = torch.as_tensor(np.random.default_rng(4).normal(size=pos.shape[0]),
+                         dtype=torch.float32, device=pos.device)
+    single = kernel_matvec(xq32, pos, c1, gamma=g)
+    ref1 = km.kernel_matvec_ref(xq32, pos, c1[None], g)[0]
+    err_s = max_err(single, ref1)
+    rel_s = float(((single - ref1).abs() - 2e-5 * ref1.abs()).max())
+    torch.cuda.synchronize()
+    check(multi.shape == (prob.batch_size, xq.shape[0]) and single.shape == (xq.shape[0],),
+          "kernel_matvec output shapes")
+    check(rel_m <= 2e-5 and rel_s <= 2e-5,
+          f"kernel_matvec: multi err {err_m:.3g}, single err {err_s:.3g} (tol 2e-5 + 2e-5 |ref|)")
+    print(f"kernels: kernel_matvec ok: B={prob.batch_size} fields x {anchors.shape[1]} anchors "
+          f"max |err| {err_m:.3g}; one field x {pos.shape[0]} anchors max |err| {err_s:.3g}")
+    return err_m
+
+
+def time_matvec(torch, prob, state, xq) -> dict:
+    from repro_torch.kernels import kernel_matvec as km
+
+    g = prob.kernel.gamma
+    xq32, anchors, coefs = conn_inputs(torch, prob, state, xq)
+    ms = graph_ms(lambda: km.kernel_matvec_batched(xq32, anchors, coefs, gamma=g))
+    call_ms = cuda_ms(lambda: km.kernel_matvec_batched(xq32, anchors, coefs, gamma=g))
+    plain_ms = cuda_ms(lambda: km.kernel_matvec_ref(xq32, anchors, coefs, g), reps=5)
+    xb = xq32[None].expand(anchors.shape[0], -1, -1)
+    library_ms = cuda_ms(
+        lambda: torch.exp(-g * torch.cdist(xb, anchors) ** 2) @ coefs[..., None], reps=5)
+    q, d = xq32.shape
+    b, n, _ = anchors.shape
+    nonzero = int((coefs != 0).sum())  # the pairs whose terms this data needs
+    nbytes = 4 * (q * d + b * n * (d + 1) + b * q)
+    flops = q * nonzero * (2 * d + 8)
+    t, by = bound(nbytes, flops, "float32")
+    # one field (B = 1, the TPU's single-field kernel): the sensor anchors
+    pos = prob.topology.positions.contiguous()
+    c1 = torch.as_tensor(np.random.default_rng(4).normal(size=(1, pos.shape[0])),
+                         dtype=torch.float32, device=pos.device)
+    n1 = pos.shape[0]
+    t1, by1 = bound(4 * (q * d + n1 * (d + 1) + q), q * n1 * (2 * d + 8), "float32")
+    single = dict(
+        ms=graph_ms(lambda: km.kernel_matvec_batched(xq32, pos, c1, gamma=g)),
+        plain_ms=cuda_ms(lambda: km.kernel_matvec_ref(xq32, pos, c1, g)),
+        library_ms=cuda_ms(lambda: torch.exp(-g * torch.cdist(xq32, pos) ** 2) @ c1[0]),
+        bound_ms=t1, bound_by=by1, anchors=n1,
+    )
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=t, bound_by=by,
+                library_ms=library_ms, nonzero_anchors=nonzero, single_field=single)
+
+
+# ---------------------------------------------------------------------------
+
+
+def run() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA GPU",
+              file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
+        print("chip_smoke: src/repro_torch not found beside chip_smoke.py; run it from "
+              "a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.core import colored_sweep, fusion, init_state, make_serving_plan
+    from repro_torch.kernels import _build, color_step, kernel_matvec, knn_fuse
+    from repro_torch.launch import serve
+
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda}); {smi}")
+
+    # 1. build ---------------------------------------------------------------
+    shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)  # build from this checkout
+    t0 = time.perf_counter()
+    reports = _build.build_all()
+    print(f"build: {len(reports)} CUDA sources in {time.perf_counter() - t0:.1f}s "
+          f"-> {_build.BUILD_DIR}")
+    check(sorted(reports) == sorted(_build.SOURCES), "not every source was built")
+    for name, rep in sorted(reports.items()):
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"build: {name}: {line.strip()}")
+
+    # 2. kernels against their plain versions, at the main path's shapes -----
+    _, args = main_args()
+    prob32 = serve.build_problem(args, torch.float32)
+    prob64 = serve.build_problem(args, torch.float64)
+    err_cs = check_color_step(torch, prob32, "float32")
+    check_color_step(torch, prob64, "float64")
+    check_color_step(torch, wide_problem(torch, torch.float64), "float64, D > 32")
+    check_color_step_witness(torch, wide_problem(torch, torch.float32), "float32, D > 32")
+    check_sweep_f64(torch, prob64, args.sweeps)
+    st32 = colored_sweep(prob32, init_state(prob32), n_sweeps=5, engine="plan")
+    st64 = colored_sweep(prob64, init_state(prob64), n_sweeps=5, engine="plan")
+    err_knn = check_knn(torch, prob32, st32, None, "float32")
+    check_knn(torch, prob64, st64, None, "float64")
+    check_knn(torch, prob32, st32, torch.bfloat16, "float32 + bf16 anchors")
+    check_knn(torch, prob64, st64, torch.bfloat16, "float64 + bf16 anchors")
+    xq_line = torch.as_tensor(np.stack([np.linspace(-1, 1, 4096), np.zeros(4096)], 1),
+                              dtype=torch.float32, device="cuda")
+    err_mv = check_matvec(torch, prob32, st32, xq_line)
+    timing = {
+        "color_step": time_color_step(torch, prob32),
+        "knn_fuse": time_knn(torch, prob32, st32),
+        "kernel_matvec": time_matvec(torch, prob32, st32, xq_line),
+    }
+    for name, t in timing.items():
+        print(f"kernels: {name} timing: " + json.dumps(t))
+
+    # 3. the main path through the port's launcher ---------------------------
+    mods = {"color_step": color_step, "knn_fuse": knn_fuse, "kernel_matvec": kernel_matvec}
+    argv, _ = main_args()
+    print("main: python -m repro_torch.launch.serve " + " ".join(argv))
+    for mod in mods.values():
+        mod.launches = 0
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = {name: mod.launches for name, mod in mods.items()}
+    print("main: kernel launches " + json.dumps(launches))
+    check(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
+    prob, state, xq = res["problem"], res["state"], res["xq"]
+    b, q = args.fields, args.queries
+    for key in ("knn", "conn"):
+        check(res[key].shape == (b, q) and bool(torch.isfinite(res[key]).all()),
+              f"main {key}: shape {tuple(res[key].shape)} or non-finite values")
+    # the same pipeline through the plain engines, on the card
+    plain = colored_sweep(prob, init_state(prob), n_sweeps=args.sweeps, engine="plan")
+    err_z = max_err(state.z, plain.z)
+    err_c = max_err(state.coef, plain.coef)
+    knn_plain = fusion.fuse(prob, plain, xq, "knn", k=args.k, engine="plan",
+                            plan=make_serving_plan(prob, k=args.k))
+    anchors, coefs = fusion.global_coefficients(prob, plain, rule="conn")
+    conn_plain = kernel_matvec.kernel_matvec_ref(xq, anchors, coefs, args.gamma)
+    err_knn_e2e = max_err(res["knn"], knn_plain)
+    err_conn_e2e = max_err(res["conn"], conn_plain)
+    print(f"main: vs plain engines on the card: max |dz| {err_z:.3g}, |dcoef| {err_c:.3g}, "
+          f"knn {err_knn_e2e:.3g}, conn {err_conn_e2e:.3g}")
+    check(err_z <= 2e-4 and err_c <= 2e-2, "main: trained state differs from the plan engine")
+    check(err_knn_e2e <= 2e-4, "main: kNN answers differ from the plain engines")
+    check(err_conn_e2e <= 2e-5, "main: conn answers differ from the plain engines")
+
+    # 4. report --------------------------------------------------------------
+    meta = {
+        "color_step": ("src/repro_torch/kernels/csrc/color_step.cu",
+                       "src/repro/kernels/color_step.py:38", err_cs),
+        "knn_fuse": ("src/repro_torch/kernels/csrc/knn_fuse.cu",
+                     "src/repro/kernels/knn_fuse.py:73", err_knn),
+        "kernel_matvec": ("src/repro_torch/kernels/csrc/kernel_matvec.cu",
+                          "src/repro/kernels/kernel_matvec.py:52", err_mv),
+    }
+    rows = []
+    for name, (source, replaces, err) in meta.items():
+        t = timing[name]
+        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches[name], "max_abs_err": err, "ms": t["ms"],
+                     "call_ms": t["call_ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    print(json.dumps({"kernels": rows}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                              "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(run())

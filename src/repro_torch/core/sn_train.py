@@ -1,0 +1,523 @@
+"""SN-Train: distributed kernel regression by alternating projections.
+
+Port of ``repro.core.sn_train`` (the build and the colored engine).  Each
+sensor ``s`` keeps a local function ``f_s = sum_{j in N_s} c_{s,j} K(., x_j)``
+and the network shares a message vector ``z``.  One projection at s
+(paper Table 1 / Eq. 18):
+
+    c_{s,t} = (K_s + lambda_s I)^{-1} (z_{N_s, t-1} + lambda_s c_{s,t-1})
+    z_j <- f_{s,t}(x_j)   for j in N_s
+
+The colored sweep updates all sensors of one distance-2 color class at once
+(paper Sec. 3.3) and runs the classes in order.  Layouts are the
+reference's: ``z (B, n + n_stream + 1)`` with the write sentinel last,
+``coef (B, n+1, D)`` with the sentinel row last, per-field ``gram``/``chol``
+``(B, n+1, D, D)``; single-field problems drop the leading ``B``.
+
+Engines of ``colored_sweep``:
+
+  ``"plan"``    (default) the static scatter plans: one gather per color;
+  ``"onehot"``  the dense one-hot GEMM realization, the simple oracle the
+                plans are tested against (plan == onehot bit for bit);
+  ``"cuda"``    the hand-written color-step kernel
+                (``repro_torch.kernels.color_step``), the counterpart of
+                the reference's ``"pallas"``.  On CPU tensors it runs the
+                kernel's plain PyTorch version.
+
+The local solves are forward and back substitution over the cached
+Cholesky factors, vectorized over all B*M lanes, and not LAPACK's
+``cholesky_solve``: the reference measured the substitution as more
+accurate in f32 at the paper's ill-conditioned lambdas.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import device as _device
+from . import plans
+from .kernels_math import Kernel
+from .plans import LifecycleLayout
+from .topology import SensorTopology, pad_topology
+
+
+@dataclasses.dataclass(frozen=True)
+class SNTrainProblem:
+    """Static per-network precomputation for SN-Train (fixed, padded shapes).
+
+    ``n`` is the sensor count, ``D`` the padded neighborhood size, ``S`` the
+    reserved streaming capacity (``n_stream``).  Batched problems prepend a
+    field axis ``B`` to ``y``, ``nbr_pos``, ``nbr_mask``, ``gram``,
+    ``chol``, ``stream_pos`` and ``anchor_w``.
+    """
+
+    topology: SensorTopology
+    kernel: Kernel
+    y: torch.Tensor  # (n,) measurements
+    lambdas: torch.Tensor  # (n,) per-sensor regularizers
+    nbr_pos: torch.Tensor  # (n+1, D, d) neighbor positions (padded row n)
+    nbr_idx: torch.Tensor  # (n+1, D) int32 message-slot ids
+    nbr_mask: torch.Tensor  # (n+1, D) bool
+    gram: torch.Tensor  # (n+1, D, D) masked local Gram K_s
+    chol: torch.Tensor  # (n+1, D, D) lower Cholesky of K_s + lambda_s I
+    lam_pad: torch.Tensor  # (n+1,)
+    stream_pos: torch.Tensor  # (S, d) arrival positions (zeros until absorbed)
+    plan_z: torch.Tensor  # (n_colors, n_z) int32 color-step gather plan for z
+    plan_coef: torch.Tensor  # (n_colors, n+1) int32 gather plan for coef
+    color_members: torch.Tensor  # (n_colors, M) int32 member rows per class
+    color_mask: torch.Tensor  # (n_colors, M) bool validity of color_members
+    color_of: torch.Tensor  # (n+1,) int32 color per row (sentinel: n_colors)
+    member_pos: torch.Tensor  # (n+1,) int32 position of each row in its color
+    alive: torch.Tensor  # (n+1,) bool row liveness; the sentinel row is dead
+    beta: torch.Tensor  # () / (B,) forgetting factor in (0, 1]
+    anchor_w: torch.Tensor  # (n+1, D) / (B, n+1, D) per-lane anchor weights
+    layout: LifecycleLayout
+    n_stream: int = 0
+
+    @property
+    def n(self) -> int:
+        return self.topology.n
+
+    @property
+    def batched(self) -> bool:
+        return self.y.ndim == 2
+
+    @property
+    def batch_size(self) -> int | None:
+        return int(self.y.shape[0]) if self.batched else None
+
+    @property
+    def n_z(self) -> int:
+        return self.n + self.n_stream + 1
+
+    @property
+    def alive_z(self) -> torch.Tensor:
+        """(n_z,) message-slot liveness (a slot lives with its owning row)."""
+        return plans.alive_slots(self.alive, self.layout.slot_owner)
+
+    @property
+    def device(self) -> torch.device:
+        return self.y.device
+
+
+@dataclasses.dataclass(frozen=True)
+class SNTrainState:
+    z: torch.Tensor  # (n+S+1,) messages; the last slot is a write sentinel
+    coef: torch.Tensor  # (n+1, D) per-sensor representer coefficients
+
+
+def default_lambdas(topology: SensorTopology, kappa: float = 0.01) -> torch.Tensor:
+    """Paper Sec. 4.1: lambda_i = kappa / |N_i|^2 (spare rows: 1.0)."""
+    deg = topology.degrees.to(torch.float32)
+    return torch.where(deg > 0, kappa / torch.clamp(deg, min=1) ** 2, 1.0)
+
+
+def _pad_per_sensor(arr: torch.Tensor, n: int, fill) -> torch.Tensor:
+    short = n - arr.shape[-1]
+    if short == 0:
+        return arr
+    if short < 0:
+        raise ValueError(f"per-sensor array longer ({arr.shape[-1]}) than n={n}")
+    pad = torch.full(arr.shape[:-1] + (short,), fill, dtype=arr.dtype, device=arr.device)
+    return torch.cat([arr, pad], dim=-1)
+
+
+def make_problem(
+    topology: SensorTopology,
+    kernel: Kernel,
+    y,
+    lambdas=None,
+    *,
+    dtype: torch.dtype = torch.float32,
+    n_max: int | None = None,
+    beta: float = 1.0,
+    device: str | torch.device = "cuda",
+) -> SNTrainProblem:
+    """Precompute the padded SN-Train problem on ``device``.
+
+    The topology must already live there.  float64 reproduces the paper's
+    numerics at its own lambdas; float32 needs larger lambdas (the same
+    caveat as the reference).  ``n_max`` pads the topology with spare rows.
+    """
+    dev = _device.resolve(device)
+    if topology.device != dev:
+        raise ValueError(f"topology lives on {topology.device}, not {dev}")
+    if not 0.0 < float(beta) <= 1.0:
+        raise ValueError(f"beta must be in (0, 1], got {beta}")
+    if n_max is not None:
+        topology = pad_topology(topology, n_max)
+    n, d_max = topology.nbr_idx.shape
+    d = topology.positions.shape[1]
+    n_base = topology.n_base if topology.n_base >= 0 else n
+    if lambdas is None:
+        lambdas = default_lambdas(topology)
+    # copies: the problem never aliases the caller's arrays
+    lambdas = torch.as_tensor(lambdas, dtype=dtype, device=dev).clone()
+    lambdas = _pad_per_sensor(lambdas, n, 1.0)
+    y = _pad_per_sensor(torch.as_tensor(y, dtype=dtype, device=dev).clone(), n, 0.0)
+
+    idx_full, n_stream = plans.assign_stream_slots(
+        topology.nbr_idx.cpu().numpy(), topology.degrees.cpu().numpy()
+    )
+    # Base rows alive, spare rows and the sentinel row n dead.
+    alive0 = np.arange(n + 1) < n_base
+    color_members = topology.color_members.cpu().numpy()
+    color_mask = topology.color_mask.cpu().numpy()
+    plan_z, plan_coef = plans.build_color_plans(
+        color_members, color_mask, idx_full, n_stream, alive0
+    )
+    layout = plans.build_layout(idx_full, n_stream, n_base, device=dev)
+    color_of, member_pos = plans.color_assignments(
+        topology.colors.cpu().numpy(), color_members, color_mask
+    )
+    nbr_mask = torch.cat(
+        [topology.nbr_mask, torch.zeros((1, d_max), dtype=torch.bool, device=dev)]
+    )
+    pos_pad = torch.cat(
+        [topology.positions.to(dtype), torch.zeros((1, d), dtype=dtype, device=dev)]
+    )
+    sentinel_row = torch.full((1, d_max), n, dtype=topology.nbr_idx.dtype, device=dev)
+    nbr_pos = pos_pad[torch.cat([topology.nbr_idx, sentinel_row])]  # (n+1, D, d)
+    lam_pad = torch.cat([lambdas, torch.ones((1,), dtype=dtype, device=dev)])
+
+    # Local systems: masked Gram K_s, and the factor of K_s + lambda_s I with
+    # padded diagonal entries set to 1 (padded coefficients stay exactly 0).
+    gram = kernel(nbr_pos, nbr_pos)  # (n+1, D, D)
+    outer = nbr_mask[:, :, None] & nbr_mask[:, None, :]
+    gram = torch.where(outer, gram, torch.zeros((), dtype=dtype, device=dev))
+    diag = torch.where(nbr_mask, lam_pad[:, None], torch.ones((), dtype=dtype, device=dev))
+    # row-major: on CUDA the factor comes back column-major
+    chol = torch.linalg.cholesky(gram + torch.diag_embed(diag)).contiguous()
+
+    t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
+    return SNTrainProblem(
+        topology=topology,
+        kernel=kernel,
+        y=y,
+        lambdas=lambdas,
+        nbr_pos=nbr_pos,
+        nbr_idx=t(idx_full, torch.int32),
+        nbr_mask=nbr_mask,
+        gram=gram,
+        chol=chol,
+        lam_pad=lam_pad,
+        stream_pos=torch.zeros((n_stream, d), dtype=dtype, device=dev),
+        plan_z=t(plan_z),
+        plan_coef=t(plan_coef),
+        color_members=t(color_members, torch.int32),
+        color_mask=t(color_mask, torch.bool),
+        color_of=t(color_of),
+        member_pos=t(member_pos),
+        alive=t(alive0),
+        beta=torch.tensor(beta, dtype=dtype, device=dev),
+        anchor_w=torch.ones((n + 1, d_max), dtype=dtype, device=dev),
+        layout=layout,
+        n_stream=n_stream,
+    )
+
+
+def make_batch_problem(
+    topology: SensorTopology,
+    kernel: Kernel,
+    ys,
+    lambdas=None,
+    *,
+    dtype: torch.dtype = torch.float32,
+    n_max: int | None = None,
+    beta=1.0,
+    device: str | torch.device = "cuda",
+) -> SNTrainProblem:
+    """B independent fields over one network: ``ys`` is (B, n).
+
+    Geometry is shared; the per-field tables start as B identical copies
+    (materialized, so every field's rows are contiguous for the kernels).
+    ``beta`` is a scalar or a (B,) vector of forgetting factors.
+    """
+    dev = _device.resolve(device)
+    ys = torch.as_tensor(ys, dtype=dtype, device=dev).clone()
+    if ys.ndim != 2:
+        raise ValueError(f"ys must be (B, n), got shape {tuple(ys.shape)}")
+    base = make_problem(
+        topology, kernel, ys[0], lambdas, dtype=dtype, n_max=n_max, device=dev
+    )
+    ys = _pad_per_sensor(ys, base.n, 0.0)
+    b = ys.shape[0]
+    beta = torch.broadcast_to(torch.as_tensor(beta, dtype=dtype, device=dev), (b,))
+    if not bool(torch.all((beta > 0.0) & (beta <= 1.0))):
+        raise ValueError(f"beta must be in (0, 1] per field, got {beta}")
+
+    def tile(a):
+        return a[None].expand((b,) + tuple(a.shape)).contiguous()
+
+    return dataclasses.replace(
+        base,
+        y=ys,
+        nbr_pos=tile(base.nbr_pos),
+        nbr_mask=tile(base.nbr_mask),
+        gram=tile(base.gram),
+        chol=tile(base.chol),
+        stream_pos=tile(base.stream_pos),
+        beta=beta.clone(),
+        anchor_w=tile(base.anchor_w),
+    )
+
+
+def weighted_norm_sq(problem: SNTrainProblem, state: SNTrainState) -> torch.Tensor:
+    """The SOP product-space norm ||z||^2 + sum_i lambda_i c_i^T K_i c_i.
+
+    Non-increasing along any admissible SOP ordering (Lemma 2.1); batched
+    inputs return one norm per field.
+    """
+    z_part = torch.sum(state.z[..., :-1] ** 2, dim=-1)  # excludes the sentinel
+    quad = torch.einsum("...sd,...sde,...se->...s", state.coef, problem.gram, state.coef)
+    return z_part + torch.sum(problem.lam_pad * quad, dim=-1)
+
+
+def init_state(problem: SNTrainProblem) -> SNTrainState:
+    """Paper Table 1 initialization: z_{s,0} = y_s, f_{s,0} = 0."""
+    n, d_max = problem.n, problem.nbr_idx.shape[-1]
+    dt, dev = problem.y.dtype, problem.y.device
+    lead = problem.y.shape[:-1]
+    z = torch.cat(
+        [problem.y, torch.zeros(lead + (problem.n_stream + 1,), dtype=dt, device=dev)],
+        dim=-1,
+    )
+    coef = torch.zeros(lead + (n + 1, d_max), dtype=dt, device=dev)
+    return SNTrainState(z=z, coef=coef)
+
+
+def effective_coef(problem: SNTrainProblem, state: SNTrainState) -> torch.Tensor:
+    """TRUE representer coefficients a = anchor_w * coef (identity at beta=1)."""
+    return state.coef * problem.anchor_w.to(state.coef.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Colored engine.  The field axis is explicit (B = 1 for single-field
+# problems).  Within one color every touched message slot has a unique
+# owner (distance-2 coloring), so the scatter back is an exact write.
+# ---------------------------------------------------------------------------
+
+
+def _tri_solve_spd(chol: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """(L L^T)^{-1} rhs by forward then back substitution over the last axis.
+
+    chol: (..., D, D) lower factors (padded rows identity), rhs: (..., D).
+    Each of the 2D steps is one batched row operation over every lane.
+    """
+    d = chol.shape[-1]
+    y = torch.zeros_like(rhs)
+    for i in range(d):
+        li = chol[..., i, :]
+        y[..., i] = (rhs[..., i] - torch.sum(li * y, dim=-1)) / chol[..., i, i]
+    x = torch.zeros_like(rhs)
+    for i in range(d - 1, -1, -1):
+        ui = chol[..., :, i]
+        x[..., i] = (y[..., i] - torch.sum(ui * x, dim=-1)) / chol[..., i, i]
+    return x
+
+
+def _color_solve(
+    nbr_idx, lam_pad, alive_row, alive_slot, nbr_mask, gram, chol, z, coef,
+    members, member_mask,
+):
+    """Simultaneous local solves of one color for all B fields.
+
+    Dead members solve to exact zeros and dead neighbors/slots drop out of
+    every rhs.  Returns (idx_m (M, D), coef_new (B, M, D), z_new (B, M, D)).
+    """
+    idx_m = nbr_idx[members]  # (M, D) shared across fields
+    live_m = member_mask & alive_row[members]
+    mask_m = nbr_mask[:, members] & live_m[None, :, None] & alive_slot[idx_m][None]
+    gram_m = gram[:, members]
+    chol_m = chol[:, members]
+    lam_m = lam_pad[members]
+    coef_m = coef[:, members]
+    b = z.shape[0]
+    z_nbr = z[:, idx_m.reshape(-1)].reshape((b,) + tuple(idx_m.shape))
+    rhs = torch.where(mask_m, z_nbr + lam_m[None, :, None] * coef_m, 0.0)
+    coef_new = _tri_solve_spd(chol_m, rhs)
+    z_new = torch.einsum("bmij,bmj->bmi", gram_m, coef_new)  # f_s at N_s
+    return idx_m, coef_new, z_new
+
+
+def _apply_plan(
+    z, coef, z_new, coef_new, plan_z_c, plan_coef_c, live_m, alive_slot,
+    deliv_flat=None,
+):
+    """Static-gather realization of the color-step scatter: O(n_z + n*D).
+
+    Codes whose source member or target slot is dead, and (``deliv_flat``,
+    (M*D,)) undelivered lanes, degrade to "keep"; the coefficient scatter
+    needs only the source gate.
+    """
+    b, n_z = z.shape
+    d = z_new.shape[-1]
+    m = live_m.shape[0]
+    zc = torch.cat([z, z_new.reshape(b, -1)], dim=-1)[:, plan_z_c]
+    src_m = torch.clamp(torch.div(plan_z_c - n_z, d, rounding_mode="floor"), 0, m - 1)
+    fresh_ok = live_m[src_m] & alive_slot
+    if deliv_flat is not None:
+        lane = torch.clamp(plan_z_c - n_z, 0, deliv_flat.shape[0] - 1)
+        fresh_ok = fresh_ok & deliv_flat[lane]
+    use = (plan_z_c < n_z) | fresh_ok
+    z = torch.where(use[None, :], zc, z)
+    n_rows = coef.shape[1]
+    cc = torch.cat([coef, coef_new], dim=1)[:, plan_coef_c]
+    srcc = torch.clamp(plan_coef_c - n_rows, 0, m - 1)
+    usec = (plan_coef_c < n_rows) | live_m[srcc]
+    coef = torch.where(usec[None, :, None], cc, coef)
+    return z, coef
+
+
+def _apply_onehot(
+    z, coef, z_new, coef_new, idx_m, members, n_z, n_rows, live_m, alive_slot,
+    deliv_flat=None,
+):
+    """Dense one-hot reference realization: O(M*D*n_z) GEMMs per color.
+
+    Dead members' one-hot rows, dead slots' columns and undelivered lanes'
+    rows are zeroed, the same gates as the plan gather.
+    """
+    b = z.shape[0]
+    d = idx_m.shape[-1]
+    dt, dev = z.dtype, z.device
+    flat_idx = idx_m.reshape(-1).long()
+    live_f = torch.repeat_interleave(live_m, d).to(dt)
+    if deliv_flat is not None:
+        live_f = live_f * deliv_flat.to(dt)
+    oh = (flat_idx[:, None] == torch.arange(n_z, device=dev)[None, :]).to(dt)
+    oh = oh * live_f[:, None] * alive_slot.to(dt)[None, :]
+    hit = oh.sum(dim=0)
+    z = z * (1.0 - hit)[None, :] + torch.einsum("kz,bk->bz", oh, z_new.reshape(b, -1))
+    ohm = (members.long()[:, None] == torch.arange(n_rows, device=dev)[None, :]).to(dt)
+    ohm = ohm * live_m.to(dt)[:, None]
+    hitm = ohm.sum(dim=0)
+    coef = coef * (1.0 - hitm)[None, :, None] + torch.einsum("mn,bmd->bnd", ohm, coef_new)
+    return z, coef
+
+
+ENGINES = ("plan", "onehot", "cuda")
+
+
+def _colored_core(
+    problem: SNTrainProblem, nbr_mask, gram, chol, z, coef, n_sweeps,
+    engine: str = "plan",
+    alive=None,
+    delivered=None,
+):
+    """Batched colored sweep over explicit leading field axes.
+
+    ``alive`` overrides the problem's row liveness; ``delivered`` is the
+    optional (n_sweeps, n+1, D) per-sweep link-delivery mask shared across
+    fields (an undelivered lane's message write never lands).
+    """
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+    if delivered is not None and delivered.shape[0] != n_sweeps:
+        raise ValueError(
+            f"delivered has {delivered.shape[0]} sweeps, expected {n_sweeps}"
+        )
+    alive_row = problem.alive if alive is None else alive
+    alive_slot = plans.alive_slots(alive_row, problem.layout.slot_owner)
+    n_colors = problem.color_members.shape[0]
+
+    if engine == "cuda":
+        from ..kernels.color_step import color_step
+
+        # The kernel writes z and coef in place (the reference returns new
+        # buffers); the caller's state is copied once per call instead.
+        z, coef = z.clone(), coef.clone()
+        for t in range(n_sweeps):
+            deliv_t = None if delivered is None else delivered[t]
+            for c in range(n_colors):
+                color_step(
+                    z, coef, problem.nbr_idx, nbr_mask, gram, chol,
+                    problem.lam_pad, alive_row, alive_slot,
+                    problem.color_members[c], problem.color_mask[c], deliv_t,
+                )
+        return z, coef
+
+    for t in range(n_sweeps):
+        deliv_t = None if delivered is None else delivered[t]
+        for c in range(n_colors):
+            members = problem.color_members[c]
+            member_mask = problem.color_mask[c]
+            live_m = member_mask & alive_row[members]
+            deliv_flat = None if deliv_t is None else deliv_t[members].reshape(-1)
+            idx_m, coef_new, z_new = _color_solve(
+                problem.nbr_idx, problem.lam_pad, alive_row, alive_slot,
+                nbr_mask, gram, chol, z, coef, members, member_mask,
+            )
+            if engine == "plan":
+                z, coef = _apply_plan(
+                    z, coef, z_new, coef_new, problem.plan_z[c],
+                    problem.plan_coef[c], live_m, alive_slot, deliv_flat,
+                )
+            else:
+                z, coef = _apply_onehot(
+                    z, coef, z_new, coef_new, idx_m, members, problem.n_z,
+                    problem.n + 1, live_m, alive_slot, deliv_flat,
+                )
+    return z, coef
+
+
+def colored_sweep(
+    problem: SNTrainProblem,
+    state: SNTrainState,
+    n_sweeps: int = 1,
+    *,
+    engine: str = "plan",
+    alive: torch.Tensor | None = None,
+    delivered: torch.Tensor | None = None,
+) -> SNTrainState:
+    """Distance-2-colored parallel SOP (paper Sec. 3.3 'Parallelism').
+
+    engine: "plan", "onehot" or "cuda" (see the module docstring).
+    alive: optional (n+1,) row-liveness override (dead sensors neither
+    update nor are heard from).  delivered: optional (n_sweeps, n+1, D) bool
+    link-delivery mask; dropped messages hold their last value.  All-True
+    masks are bitwise identities, engine by engine.
+    """
+    if problem.batched:
+        z, coef = _colored_core(
+            problem, problem.nbr_mask, problem.gram, problem.chol,
+            state.z, state.coef, n_sweeps, engine, alive, delivered,
+        )
+        return SNTrainState(z=z, coef=coef)
+    z, coef = _colored_core(
+        problem, problem.nbr_mask[None], problem.gram[None], problem.chol[None],
+        state.z[None], state.coef[None], n_sweeps, engine, alive, delivered,
+    )
+    return SNTrainState(z=z[0], coef=coef[0])
+
+
+def local_only(problem: SNTrainProblem) -> SNTrainState:
+    """The paper's Sec-4.3 ablation: one local fit, no Update messages.
+
+    Refuses problems whose stream slots are occupied (their values are not
+    part of ``problem.y``).
+    """
+    stream_used = problem.nbr_mask & (problem.nbr_idx >= problem.n)
+    if bool(stream_used.any()):
+        raise NotImplementedError(
+            "local_only is the pre-streaming ablation; absorbed arrivals "
+            "are not part of problem.y — run it before streaming.absorb"
+        )
+    lead = problem.y.shape[:-1]
+    y_pad = torch.cat(
+        [problem.y, torch.zeros(lead + (problem.n_stream + 1,),
+                                dtype=problem.y.dtype, device=problem.device)],
+        dim=-1,
+    )
+    alive_slot = problem.alive_z
+    mask = (
+        problem.nbr_mask
+        & alive_slot[problem.nbr_idx]
+        & problem.alive[:, None]
+    )
+    rhs = torch.where(mask, y_pad[..., problem.nbr_idx], 0.0)
+    coef = torch.cholesky_solve(rhs[..., None], problem.chol, upper=False)[..., 0]
+    return SNTrainState(z=y_pad, coef=coef)

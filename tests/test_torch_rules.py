@@ -1,0 +1,110 @@
+"""The port's rules: no JAX, an explicit device, no fallback from a kernel."""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.core as tr
+from repro_torch import convert
+from repro_torch.kernels import _build, color_step, kernel_matvec, knn_fuse
+from repro_torch.launch import serve
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.join(ROOT, "src", "repro_torch")):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def test_port_never_imports_jax_or_the_reference():
+    files = _port_files()
+    assert len(files) > 10
+    for path in files:
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
+
+
+_POS = np.random.default_rng(0).uniform(-1, 1, size=(8, 2)).astype(np.float32)
+ENTRY_POINTS = {
+    "build_topology": lambda: tr.build_topology(_POS, 0.8),
+    "ring_topology": lambda: tr.ring_topology(6),
+    "make_problem": lambda: tr.make_problem(
+        tr.build_topology(_POS, 0.8, device="cpu"), tr.Kernel(), np.zeros(8)),
+    "make_batch_problem": lambda: tr.make_batch_problem(
+        tr.build_topology(_POS, 0.8, device="cpu"), tr.Kernel(), np.zeros((2, 8))),
+    "fit_krr": lambda: tr.fit_krr(_POS, np.zeros(8), tr.Kernel(), 0.1),
+    "state_from_numpy": lambda: convert.state_from_numpy(
+        {"z": np.zeros(3), "coef": np.zeros((2, 2))}),
+    "serve.main": lambda: serve.main(["--fields", "2", "--sensors", "8"]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_default_device_raises_without_cuda(name):
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available, so the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ENTRY_POINTS[name]()
+
+
+def _fail(*a, **k):
+    raise AssertionError("a non-CPU tensor reached the plain version")
+
+
+def test_non_cpu_tensors_never_reach_the_plain_versions(monkeypatch):
+    """A tensor that is not on the CPU launches the kernel or raises."""
+    monkeypatch.setattr(color_step, "color_step_ref", _fail)
+    monkeypatch.setattr(knn_fuse, "knn_fuse_ref", _fail)
+    monkeypatch.setattr(kernel_matvec, "kernel_matvec_ref", _fail)
+    meta = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt, device="meta")  # noqa
+    b, r, d, nz, m = 2, 5, 3, 9, 2
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        color_step.color_step(
+            meta(b, nz), meta(b, r, d), meta(r, d, dt=torch.int32),
+            meta(b, r, d, dt=torch.bool), meta(b, r, d, d), meta(b, r, d, d), meta(r),
+            meta(r, dt=torch.bool), meta(nz, dt=torch.bool), meta(m, dt=torch.int32),
+            meta(m, dt=torch.bool),
+        )
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        knn_fuse.knn_fuse_fused(
+            meta(4, 2), meta(4, dt=torch.int32), meta(3, 5, dt=torch.int32),
+            meta(3, 5, dt=torch.bool), meta(r, 2), meta(b, r, d, 2),
+            meta(b, r, d, dt=torch.bool), meta(b, r, d), k=2,
+        )
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        kernel_matvec.kernel_matvec_batched(meta(4, 2), meta(7, 2), meta(b, 7), gamma=1.0)
+    assert color_step.launches == knn_fuse.launches == kernel_matvec.launches == 0
+
+
+def test_missing_nvcc_raises_and_names_it(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
+
+
+@pytest.mark.parametrize("flag", [["--stream", "4"], ["--churn", "2"],
+                                  ["--faults", "drop=0.1"], ["--energy_tau", "0.1"],
+                                  ["--mode", "daemon"]])
+def test_unported_launcher_features_refuse(flag):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        serve.main(["--device", "cpu", "--fields", "2", "--sensors", "8"] + flag)
