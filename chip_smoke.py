@@ -5,23 +5,36 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
 
 Phases, one line or more each; any failure raises and exits non-zero:
   1. build   compile every CUDA source under src/repro_torch/kernels/csrc
-             (one nvcc per source, all at once) into build/;
+             (five, one nvcc per source, all at once) into build/;
   2. kernels each kernel against its plain PyTorch version on the card, at
              the main path's shapes: color_step in f32 and f64 with a dead
              row and dropped messages, and at D = 40 (lanes beyond a warp)
              in f64 and in f32 against an f64 witness, knn_fuse in f32,
              f64 and with bf16 anchors (identical selected sets),
-             kernel_matvec for one and for B fields; then each kernel's
-             time, its plain version's time, one PyTorch library call's
-             time where there is one, and the least time the card could
-             take (``bound_ms``);
+             kernel_matvec for one and for B fields, ssd_intra at the
+             mamba2-370m prefill's shape (B=4, S=512, H=32, P=64, N=128,
+             chunk 256) and, through the chunked scan, at S=300 (padded to
+             a chunk multiple), rbf_gram of the conn query line against the
+             main path's 8400-anchor table; then each kernel's time, its
+             plain version's time, one PyTorch library call's time where
+             there is one, and the least time the card could take
+             (``bound_ms``);
   3. main    the port's launcher at the benched geometry (n=1000 sensors in
              d=2, radius 0.3*sqrt(100/n), rbf gamma=1, lambda=0.1, B=16
              fields, 30 colored sweeps with the CUDA color step, kNN k=3 and
              conn serving of Q=4096 queries), with every launch counter set
              to 0 before and read after; then the same pipeline through the
              plain engines on the card, compared end to end;
-  4. report  the kernels JSON line, the card's name and power limit, and
+  4. main-lm the port's launcher in LM mode: mamba2-370m at full width in
+             its own bf16, random weights from seed 0, a 4 x 512 prompt
+             and 32 greedy tokens, with every launch counter set to 0
+             before and read after (ssd_intra must run once per layer per
+             prefill); then the same prompt through the full-width model in
+             float32 with the kernel and with the plain ssd_chunked, on the
+             same weights, compared on the prefill's logits, every layer's
+             final SSM state and 4 teacher-forced decode steps, with an
+             f64 run of the plain route as the witness;
+  5. report  the kernels JSON line, the card's name and power limit, and
              the final {"ok": true, ...} line.
 
 Tolerances are the reference's own.  Per launch, on identical inputs:
@@ -30,18 +43,24 @@ color_step z 1e-5 and coef 1e-3 in f32 (tests/test_scatter_plan.py),
 exceeds 1e-5, both are held to an f64 evaluation of the same inputs and
 the kernel's error may be at most WITNESS_FACTOR times the plain
 version's); knn_fuse 1e-5 (tests/test_serving.py), 1e-10 in f64;
-kernel_matvec 2e-5 absolute and relative (tests/test_kernels_pallas.py).
+kernel_matvec and rbf_gram 2e-5 absolute and relative, ssd_intra 3e-4
+(tests/test_kernels_pallas.py).
 End to end, after 30 sweeps in which kernel and plan engine sum in
 different orders, the two realizations drift apart by f32 rounding (the
 same 30 sweeps in f64 must agree within 1e-10, which shows the math is
 the same); the f32 drift is bounded as the reference bounds its own two
 realizations of one sweep with different reduction orders
 (tests/test_scatter_plan.py, sharded transport: z 2e-4, coef 2e-2), kNN
-answers at the z bound, conn answers at 2e-5.
+answers at the z bound, conn answers at 2e-5.  The LM path's kernel and
+plain routes are held to the reference's fused-on/off bound of 2e-3
+absolute and relative (tests/test_kernels_pallas.py); should they differ by
+more, each is held to the f64 witness and the kernel route's error may be
+at most LM_WITNESS_FACTOR times the plain route's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -426,6 +445,182 @@ def time_matvec(torch, prob, state, xq) -> dict:
                 library_ms=library_ms, nonzero_anchors=nonzero, single_field=single)
 
 
+# ssd_intra and rbf_gram: the second slice's kernels.
+# ---------------------------------------------------------------------------
+
+SSD_FULL = (4, 512, 32, 64, 128, 256)  # b, s, H, P, N, chunk of the mamba2-370m prefill
+SSD_PADDED_S = 300  # not a chunk multiple: the scan pads it to 512
+SSD_TOL = 3e-4
+GRAM_TOL = 2e-5
+
+
+def excess(got, ref, tol: float) -> float:
+    """max(|got - ref| - tol |ref|): within tol absolute and relative iff <= tol."""
+    return float(((got.double() - ref.double()).abs() - tol * ref.double().abs()).max())
+
+
+def ssd_inputs(torch, b, s, h, p, n, seed: int):
+    """Random SSD inputs at a model's shapes, with the model's A in [-16, -1]."""
+    rng = np.random.default_rng(seed)
+    cuda = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")  # noqa: E731
+    x = cuda(rng.normal(size=(b, s, h, p)))
+    dt = torch.nn.functional.softplus(cuda(rng.normal(size=(b, s, h))))
+    a = -cuda(np.linspace(1.0, 16.0, h))
+    return x, dt, a, cuda(rng.normal(size=(b, s, n))), cuda(rng.normal(size=(b, s, n)))
+
+
+def check_ssd_intra(torch):
+    """The kernel at the prefill's shape, then the chunked scan around it at a
+    padded length; returns (max |err|, the full-shape kernel inputs)."""
+    from repro_torch.kernels import ops, ssd_intra as si
+    from repro_torch.models import ssm
+
+    b, s, h, p, n, cs = SSD_FULL
+    x, dt, a, bm, cm = ssd_inputs(torch, b, s, h, p, n, seed=7)
+    da_cum = torch.cumsum((dt * a).reshape(b, s // cs, cs, h), dim=2).reshape(b, s, h)
+    ins = (x, dt, da_cum.contiguous(), bm, cm)
+    got = si.ssd_intra(*ins, chunk=cs)
+    ref = si.ssd_intra_ref(*ins, cs)
+    torch.cuda.synchronize()
+    err, over = max_err(got, ref), excess(got, ref, SSD_TOL)
+    check(got.shape == (b, s, h, p) and bool(torch.isfinite(got).all()) and over <= SSD_TOL,
+          f"ssd_intra: max |err| {err:.3g} (tol {SSD_TOL} + {SSD_TOL} |ref|)")
+    xs, dts, _, bms, cms = ssd_inputs(torch, 2, SSD_PADDED_S, h, p, n, seed=8)
+    y_k, st_k = ops.ssd_chunked_fused(xs, dts, a, bms, cms, cs)
+    y_p, st_p = ssm.ssd_chunked(xs, dts, a, bms, cms, cs)
+    torch.cuda.synchronize()
+    err_y, err_st = max_err(y_k, y_p), max_err(st_k, st_p)
+    check(excess(y_k, y_p, SSD_TOL) <= SSD_TOL and excess(st_k, st_p, SSD_TOL) <= SSD_TOL,
+          f"ssd_chunked_fused at S={SSD_PADDED_S}: |dy| {err_y:.3g}, |dstate| {err_st:.3g}")
+    print(f"kernels: ssd_intra ok: B={b} S={s} H={h} P={p} N={n} chunk={cs}, max |err| "
+          f"{err:.3g} (|ref| up to {float(ref.abs().max()):.3g}); chunked scan at "
+          f"S={SSD_PADDED_S} (padded to {-(-SSD_PADDED_S // cs) * cs}) vs plain: "
+          f"max |dy| {err_y:.3g}, max |dstate| {err_st:.3g}")
+    return err, (ins, cs)
+
+
+def time_ssd_intra(torch, ins, cs: int) -> dict:
+    from repro_torch.kernels import ssd_intra as si
+
+    x, dt, da_cum, bm, cm = ins
+    b, s, h, p = x.shape
+    n = bm.shape[-1]
+    ms = graph_ms(lambda: si.ssd_intra(*ins, chunk=cs))
+    call_ms = cuda_ms(lambda: si.ssd_intra(*ins, chunk=cs))
+    plain_ms = cuda_ms(lambda: si.ssd_intra_ref(*ins, cs), reps=5)
+    # inputs read once, the output written once; per (batch, chunk) the
+    # causal pairs l >= m: CB over N, and per head the masked decay (a
+    # subtraction, an exp, a product) and M (dt x) over P; dt x once
+    pairs = b * (s // cs) * cs * (cs + 1) // 2
+    nbytes = 4 * (2 * x.numel() + 2 * dt.numel() + 2 * bm.numel())
+    flops = pairs * (2 * n + h * (2 * p + 3)) + x.numel()
+    t, by = bound(nbytes, flops, "float32")
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=t, bound_by=by,
+                library_ms=None)
+
+
+def check_gram(torch, x1, x2, gamma: float) -> float:
+    from repro_torch.kernels import gram
+    from repro_torch.kernels.ops import rbf_gram
+
+    got = rbf_gram(x1, x2, gamma=gamma)
+    ref = gram.rbf_gram_ref(x1, x2, gamma)
+    torch.cuda.synchronize()
+    err, over = max_err(got, ref), excess(got, ref, GRAM_TOL)
+    check(got.shape == (x1.shape[0], x2.shape[0]) and over <= GRAM_TOL,
+          f"rbf_gram: max |err| {err:.3g} (tol {GRAM_TOL} + {GRAM_TOL} |ref|)")
+    print(f"kernels: rbf_gram ok: {x1.shape[0]} queries x {x2.shape[0]} anchors, d="
+          f"{x1.shape[1]}, {got.numel() * 4 / 1e6:.1f} MB out, max |err| {err:.3g}")
+    return err
+
+
+def time_gram(torch, x1, x2, gamma: float) -> dict:
+    from repro_torch.kernels import gram
+
+    ms = graph_ms(lambda: gram.rbf_gram(x1, x2, gamma=gamma))
+    call_ms = cuda_ms(lambda: gram.rbf_gram(x1, x2, gamma=gamma))
+    plain_ms = cuda_ms(lambda: gram.rbf_gram_ref(x1, x2, gamma), reps=5)
+    library_ms = cuda_ms(lambda: torch.exp(-gamma * torch.cdist(x1, x2).square()), reps=5)
+    (m, d), n = x1.shape, x2.shape[0]
+    # per element: the cross term, the expanded square, clamp, scale and exp
+    t, by = bound(4 * (m * n + (m + n) * d), m * n * (2 * d + 6), "float32")
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=t, bound_by=by,
+                library_ms=library_ms)
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the LM path.
+# ---------------------------------------------------------------------------
+
+LM_ARGV = ["--mode", "lm", "--arch", "mamba2-370m", "--variant", "full", "--batch", "4",
+           "--prompt_len", "512", "--gen", "32"]
+LM_SEED = 0  # the launcher's default --seed
+LM_TOL = 2e-3
+LM_DECODE_STEPS = 4
+# Where the kernel and plain routes differ by more than LM_TOL, the kernel
+# route's error against the f64 witness may be at most this multiple of the
+# plain route's.
+LM_WITNESS_FACTOR = 4.0
+
+
+def lm_route(torch, cfg, params, prompt, tokens):
+    """Prefill ``prompt``, then decode ``tokens`` teacher-forced; returns
+    {"logits", "states", "decode"}."""
+    from repro_torch.models import decode_step, init_cache, prefill
+
+    b, s0 = prompt.shape
+    cache = init_cache(cfg, b, s0 + tokens.shape[1] + 1, device=prompt.device)
+    logits, cache = prefill(cfg, params, {"tokens": prompt}, cache)
+    out = {"logits": logits, "states": torch.stack([c["state"] for c in cache])}
+    steps = []
+    for t in range(tokens.shape[1]):
+        step, cache = decode_step(cfg, params, tokens[:, t:t + 1], cache, s0 + t)
+        steps.append(step)
+    out["decode"] = torch.cat(steps, dim=1)
+    return out
+
+
+def compare_lm(torch, res) -> dict:
+    """Kernel route against plain route at full width in float32 (same weights,
+    same prompt), both also against the plain route in float64."""
+    from repro_torch.models import init_params
+
+    cfg = res["cfg"]
+    prompt, tokens = res["prompt"], res["tokens"][:, :LM_DECODE_STEPS]
+    runs = {}
+    with torch.inference_mode():
+        for name, dtype, fused in (("cuda", "float32", True), ("plan", "float32", False),
+                                   ("f64", "float64", False)):
+            c = dataclasses.replace(cfg, dtype=dtype, ssd_fused=fused)
+            if name != "plan":  # the f32 routes share one set of weights
+                params = init_params(c, LM_SEED, device="cuda")
+            runs[name] = lm_route(torch, c, params, prompt, tokens)
+            torch.cuda.synchronize()
+    readings, ok_direct, ok_witness = {}, True, True
+    for key in ("logits", "states", "decode"):
+        k, p, w = runs["cuda"][key], runs["plan"][key], runs["f64"][key]
+        check(bool(torch.isfinite(k).all()) and bool(torch.isfinite(p).all()),
+              f"main-lm f32 {key}: non-finite values")
+        r = dict(kernel_vs_plain=max_err(k, p), kernel_vs_f64=max_err(k, w),
+                 plain_vs_f64=max_err(p, w), max_abs=float(w.abs().max()))
+        ok_direct &= excess(k, p, LM_TOL) <= LM_TOL
+        ok_witness &= r["kernel_vs_f64"] <= LM_WITNESS_FACTOR * r["plain_vs_f64"]
+        readings[key] = r
+        print(f"main-lm: float32 {key}: kernel vs plain max |d| "
+              f"{r['kernel_vs_plain']:.3g}; against the f64 witness kernel "
+              f"{r['kernel_vs_f64']:.3g}, plain {r['plain_vs_f64']:.3g} "
+              f"(|f64| up to {r['max_abs']:.3g})")
+    check(ok_direct or ok_witness,
+          f"main-lm: kernel and plain routes differ beyond {LM_TOL} and the kernel's "
+          f"error against the f64 witness exceeds {LM_WITNESS_FACTOR} x the plain "
+          f"route's: {json.dumps(readings)}")
+    how = (f"within {LM_TOL} abs + rel" if ok_direct else
+           f"beyond {LM_TOL}, within {LM_WITNESS_FACTOR} x the plain route's f64 error")
+    print(f"main-lm: float32 kernel vs plain route ok ({how}): prefill logits, "
+          f"{cfg.n_layers} final SSM states, {LM_DECODE_STEPS} teacher-forced decode steps")
+    return readings
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -442,7 +637,7 @@ def run() -> int:
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch.core import colored_sweep, fusion, init_state, make_serving_plan
-    from repro_torch.kernels import _build, color_step, kernel_matvec, knn_fuse
+    from repro_torch.kernels import _build, color_step, gram, kernel_matvec, knn_fuse, ssd_intra
     from repro_torch.launch import serve
 
     kind = torch.cuda.get_device_name(0)
@@ -481,23 +676,30 @@ def run() -> int:
     xq_line = torch.as_tensor(np.stack([np.linspace(-1, 1, 4096), np.zeros(4096)], 1),
                               dtype=torch.float32, device="cuda")
     err_mv = check_matvec(torch, prob32, st32, xq_line)
+    err_ssd, (ssd_ins, ssd_cs) = check_ssd_intra(torch)
+    anchor_table = conn_inputs(torch, prob32, st32, xq_line)[1][0].contiguous()  # (8400, 2)
+    err_gram = check_gram(torch, xq_line, anchor_table, prob32.kernel.gamma)
     timing = {
         "color_step": time_color_step(torch, prob32),
         "knn_fuse": time_knn(torch, prob32, st32),
         "kernel_matvec": time_matvec(torch, prob32, st32, xq_line),
+        "ssd_intra": time_ssd_intra(torch, ssd_ins, ssd_cs),
+        "rbf_gram": time_gram(torch, xq_line, anchor_table, prob32.kernel.gamma),
     }
     for name, t in timing.items():
         print(f"kernels: {name} timing: " + json.dumps(t))
 
     # 3. the main path through the port's launcher ---------------------------
-    mods = {"color_step": color_step, "knn_fuse": knn_fuse, "kernel_matvec": kernel_matvec}
+    mods = {"color_step": color_step, "knn_fuse": knn_fuse, "kernel_matvec": kernel_matvec,
+            "ssd_intra": ssd_intra, "rbf_gram": gram}
+    field = ("color_step", "knn_fuse", "kernel_matvec")
     argv, _ = main_args()
     print("main: python -m repro_torch.launch.serve " + " ".join(argv))
     for mod in mods.values():
         mod.launches = 0
     res = serve.main(argv)
     torch.cuda.synchronize()
-    launches = {name: mod.launches for name, mod in mods.items()}
+    launches = {name: mods[name].launches for name in field}
     print("main: kernel launches " + json.dumps(launches))
     check(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
     prob, state, xq = res["problem"], res["state"], res["xq"]
@@ -521,7 +723,35 @@ def run() -> int:
     check(err_knn_e2e <= 2e-4, "main: kNN answers differ from the plain engines")
     check(err_conn_e2e <= 2e-5, "main: conn answers differ from the plain engines")
 
-    # 4. report --------------------------------------------------------------
+    # 4. the LM path through the port's launcher -----------------------------
+    print("main-lm: python -m repro_torch.launch.serve " + " ".join(LM_ARGV))
+    for mod in mods.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    lm = serve.main(LM_ARGV)
+    torch.cuda.synchronize()
+    lm_launches = {name: mod.launches for name, mod in mods.items()}
+    print("main-lm: kernel launches " + json.dumps(lm_launches)
+          + f" ({lm['prefill_calls']} prefill calls, the warm-up included)")
+    cfg = lm["cfg"]
+    check(lm_launches["ssd_intra"] == cfg.n_layers * lm["prefill_calls"],
+          f"main-lm: ssd_intra launched {lm_launches['ssd_intra']} times, expected "
+          f"{cfg.n_layers} per prefill x {lm['prefill_calls']}")
+    check(all(lm_launches[name] == 0 for name in field + ("rbf_gram",)),
+          f"main-lm: a kernel off the LM path was launched: {lm_launches}")
+    b_lm, gen = (int(LM_ARGV[LM_ARGV.index(flag) + 1]) for flag in ("--batch", "--gen"))
+    check(lm["logits"].shape == (b_lm, 1, cfg.vocab_size)
+          and bool(torch.isfinite(lm["logits"]).all()), "main-lm: prefill logits")
+    check(lm["tokens"].shape == (b_lm, gen) and int(lm["tokens"].min()) >= 0
+          and int(lm["tokens"].max()) < cfg.vocab_size, "main-lm: generated tokens")
+    print(f"main-lm: {cfg.name} ({cfg.n_params() / 1e6:.1f}M params, {cfg.dtype}) "
+          f"prefill {lm['prefill_s']:.4f}s, decode {lm['tok_s']:.1f} tok/s, "
+          f"launcher {time.perf_counter() - t0:.1f}s")
+    lm_readings = compare_lm(torch, lm)
+    launches["ssd_intra"] = lm_launches["ssd_intra"]
+    launches["rbf_gram"] = 0  # no path reaches it: the kernels phase only
+
+    # 5. report --------------------------------------------------------------
     meta = {
         "color_step": ("src/repro_torch/kernels/csrc/color_step.cu",
                        "src/repro/kernels/color_step.py:38", err_cs),
@@ -529,6 +759,10 @@ def run() -> int:
                      "src/repro/kernels/knn_fuse.py:73", err_knn),
         "kernel_matvec": ("src/repro_torch/kernels/csrc/kernel_matvec.cu",
                           "src/repro/kernels/kernel_matvec.py:52", err_mv),
+        "ssd_intra": ("src/repro_torch/kernels/csrc/ssd_intra.cu",
+                      "src/repro/kernels/ssd_intra.py:30", err_ssd),
+        "rbf_gram": ("src/repro_torch/kernels/csrc/gram.cu",
+                     "src/repro/kernels/gram.py:19", err_gram),
     }
     rows = []
     for name, (source, replaces, err) in meta.items():
@@ -538,6 +772,7 @@ def run() -> int:
                      "call_ms": t["call_ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    print("main-lm: " + json.dumps({"f32_vs_plain_and_f64": lm_readings}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

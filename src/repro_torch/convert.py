@@ -1,11 +1,13 @@
-"""Carry a problem, state or serving plan across as numpy arrays.
+"""Carry a problem, state, serving plan or LM parameters across as numpy arrays.
 
 The reference's ``SNTrainProblem``, ``SNTrainState`` and ``ServingPlan``
 leaves, read out as numpy arrays, become the port's dataclasses on
 ``device``.  Keys are the field names; nested dataclasses use a dotted
 prefix (``"topology.positions"``, ``"layout.slot_owner"``).  Static fields
 (``n_stream``, ``topology.n_colors``, ``grid_shape``, ``k``, ...) are
-plain Python values in the same dict.  Dtypes are kept as given.
+plain Python values in the same dict.  The reference's LM parameter tree
+becomes the port's ``Decoder`` (``lm_params_from_numpy``).  Dtypes are kept
+as given.
 """
 
 from __future__ import annotations
@@ -21,6 +23,10 @@ from .core.plans import LifecycleLayout
 from .core.serving import ServingPlan
 from .core.sn_train import SNTrainProblem, SNTrainState
 from .core.topology import SensorTopology
+from .models import layers as L
+from .models import ssm as S
+from .models import transformer as T
+from .models.config import ModelConfig
 
 _STATIC = {"n_colors": int, "n_base": int, "radius": float, "n_recolor": int,
            "n_stream": int, "k": int, "grid_shape": tuple}
@@ -62,3 +68,71 @@ def state_from_numpy(d: dict, *, device: str | torch.device = "cuda") -> SNTrain
 def serving_plan_from_numpy(d: dict, *, device: str | torch.device = "cuda") -> ServingPlan:
     """A ``ServingPlan`` on ``device`` from the reference's leaves."""
     return _build(ServingPlan, d, "", _device.resolve(device))
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{key}."))
+        else:
+            out[prefix + key] = v
+    return out
+
+
+def _tensor(v, dev: torch.device) -> torch.Tensor:
+    a = np.array(v)  # a writable copy
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, as JAX hands it out
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(dev)
+    return torch.as_tensor(a, device=dev)
+
+
+def ssm_mixer_from_numpy(tree: dict, *, device: str | torch.device = "cuda") -> S.SSMMixer:
+    """One mixer's ``SSMMixer`` on ``device`` from the reference's ``ssm_init``
+    tree (``in_proj.w``, ``conv_w``, ...) read out as numpy.
+
+    The conv weight turns from the reference's (K, C) into ``F.conv1d``'s
+    (C, 1, K); nothing else is transposed.
+    """
+    dev = _device.resolve(device)
+    flat = _flatten(tree)
+    return S.SSMMixer(
+        in_proj=_tensor(flat["in_proj.w"], dev),
+        conv_w=_tensor(flat["conv_w"], dev).T.contiguous()[:, None, :],
+        conv_b=_tensor(flat["conv_b"], dev),
+        A_log=_tensor(flat["A_log"], dev),
+        D=_tensor(flat["D"], dev),
+        dt_bias=_tensor(flat["dt_bias"], dev),
+        norm_scale=_tensor(flat["norm_scale"], dev),
+        out_proj=_tensor(flat["out_proj.w"], dev),
+    )
+
+
+def lm_params_from_numpy(
+    tree: dict, cfg: ModelConfig, *, device: str | torch.device = "cuda"
+) -> T.Decoder:
+    """The port's ``Decoder`` on ``device`` from the reference's parameter tree.
+
+    ``tree`` is the reference's ``init_params`` output read out as numpy
+    (nested dicts, or one dict with dotted keys): ``embed``,
+    ``final_norm.scale`` and ``blocks.layer0.{norm1.scale, ssm.*}`` with a
+    leading ``n_blocks`` axis, one block per layer.
+    """
+    dev = _device.resolve(device)
+    T.check_supported(cfg)
+    flat = _flatten(tree)
+    stacked = {k[len("blocks.layer0."):]: np.asarray(v) for k, v in flat.items()
+               if k.startswith("blocks.layer0.")}
+    for key, v in stacked.items():
+        if v.shape[0] != cfg.n_layers:
+            raise ValueError(f"{key}: leading axis {v.shape[0]}, expected {cfg.n_layers}")
+    layers = []
+    for i in range(cfg.n_layers):
+        mixer = ssm_mixer_from_numpy(
+            {k[len("ssm."):]: v[i] for k, v in stacked.items() if k.startswith("ssm.")},
+            device=dev,
+        )
+        norm1 = L.RMSNorm(_tensor(stacked["norm1.scale"][i], dev))
+        layers.append(T.MixerLayer(norm1, mixer))
+    return T.Decoder(_tensor(flat["embed"], dev),
+                     L.RMSNorm(_tensor(flat["final_norm.scale"], dev)), layers)

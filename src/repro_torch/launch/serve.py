@@ -1,4 +1,5 @@
-"""Serving launcher of the port, field mode: build -> train -> serve.
+"""Serving launcher of the port: field mode (build -> train -> serve) and LM
+mode (prefill + greedy decode).
 
 B independent fields over one sensor network are trained with the colored
 SN-Train sweep, then one query grid is answered under each rule given to
@@ -11,24 +12,37 @@ SN-Train sweep, then one query grid is answered under each rule given to
 
 ``--engine cuda`` (the default) trains with the color-step kernel and
 serves kNN with the knn_fuse kernel; ``plan`` and ``dense`` run the plain
-PyTorch engines.  Streaming, churn, faults, pruning, the daemon and the LM
-modes of the reference launcher are not ported yet and refuse to run.
+PyTorch engines.
 
-Example (the benched geometry, on the GPU):
+``--mode lm`` serves ``--arch`` (only ``mamba2-370m`` is ported) from
+random weights made from ``--seed``: one prompt of ``--batch`` x
+``--prompt_len`` random tokens is prefilled, then ``--gen`` tokens are
+decoded greedily against the SSM cache.  ``--engine cuda`` runs the prefill's
+SSD intra-chunk term in the ssd_intra kernel (``ssd_fused=True``);
+``plan`` runs the plain ``ssd_chunked``.
+
+Streaming, churn, faults, pruning and the daemon of the reference launcher
+are not ported yet and refuse to run.
+
+Examples (on the GPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --mode field \\
     --fields 16 --sensors 1000 --dim 2 --radius 0.0949 --sweeps 30 \\
     --queries 4096 --fusion knn conn --k 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
+    --arch mamba2-370m --variant full --batch 4 --prompt_len 512 --gen 32
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
 from .. import device as _device
+from ..configs import ARCH_NAMES, get_config
 from ..core import (
     Kernel,
     build_topology,
@@ -40,17 +54,21 @@ from ..core import (
     uniform_sensors,
 )
 from ..kernels.ops import kernel_matvec
+from ..models import decode_step, init_cache, init_params, prefill
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def _timed(fn, dev: torch.device):
     """Run ``fn`` once to warm up, then once timed; returns (result, seconds)."""
     fn()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    _sync(dev)
     t0 = time.perf_counter()
     out = fn()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    _sync(dev)
     return out, time.perf_counter() - t0
 
 
@@ -131,11 +149,72 @@ def serve_fields(args: argparse.Namespace) -> dict:
     return res
 
 
+@torch.inference_mode()
+def serve_lm(args: argparse.Namespace) -> dict:
+    """Prefill one random prompt and decode ``--gen`` tokens greedily.
+
+    One prefill and one decode step run first as a warm-up, so the timed
+    prefill and decode hold no one-time costs (kernel loading, library
+    handles).  Returns ``cfg``, ``params``, ``prompt``, the timed prefill's
+    last-position ``logits`` (B, 1, V) and ``prefill_cache``, the generated
+    ``tokens`` (B, gen), the final ``cache``, the timings and
+    ``prefill_calls`` (prefills run, the warm-up included).
+    """
+    dev = _device.resolve(args.device)
+    if args.engine not in ("cuda", "plan"):
+        raise ValueError(f"--mode lm takes --engine cuda or plan, got {args.engine!r}")
+    cfg = get_config(args.arch, variant=args.variant)
+    cfg = dataclasses.replace(cfg, ssd_fused=args.engine == "cuda")
+    params = init_params(cfg, args.seed, device=dev)
+    print(f"arch={cfg.name} params={cfg.n_params() / 1e6:.1f}M dtype={cfg.dtype} "
+          f"engine={args.engine} device={dev}")
+
+    b, s0 = args.batch, args.prompt_len
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s0), generator=gen, device=dev)
+    batch = {"tokens": prompt}
+    max_seq = s0 + args.gen + 1
+
+    logits, cache = prefill(cfg, params, batch, init_cache(cfg, b, max_seq, device=dev))
+    decode_step(cfg, params, torch.argmax(logits[:, -1:], dim=-1), cache, s0)  # warm-up
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill(cfg, params, batch, init_cache(cfg, b, max_seq, device=dev))
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    print(f"prefill: {prefill_s:.4f}s ({b}x{s0} tokens)")
+
+    res = dict(cfg=cfg, params=params, prompt=prompt, logits=logits, prefill_cache=cache,
+               prefill_s=prefill_s, prefill_calls=2)
+    out = []
+    t0 = time.perf_counter()
+    for i in range(args.gen):
+        step_logits, cache = decode_step(cfg, params, tok, cache, s0 + i)
+        tok = torch.argmax(step_logits[:, -1:], dim=-1)
+        out.append(tok)
+    _sync(dev)
+    decode_s = time.perf_counter() - t0
+    tokens = torch.cat(out, dim=1) if out else prompt.new_zeros((b, 0))
+    tok_s = b * args.gen / decode_s if decode_s > 0 else float("inf")
+    print(f"decode: {args.gen} steps in {decode_s:.4f}s -> {tok_s:.1f} tok/s")
+    print("sample row 0:", tokens[0, :24].tolist())
+    res.update(tokens=tokens, cache=cache, decode_s=decode_s, tok_s=tok_s)
+    return res
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", default="field", choices=["field", "lm", "daemon"])
     ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
     ap.add_argument("--seed", type=int, default=0)
+    # --mode lm
+    ap.add_argument("--arch", default="mamba2-370m", choices=ARCH_NAMES)
+    ap.add_argument("--variant", default="smoke", choices=["smoke", "full"])
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt_len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=64)
+    # --mode field
     ap.add_argument("--fields", type=int, default=64, help="B concurrent fields")
     ap.add_argument("--sensors", type=int, default=50)
     ap.add_argument("--dim", type=int, default=1, help="sensor-space dimension")
@@ -150,8 +229,9 @@ def parser() -> argparse.ArgumentParser:
                     help="query fusion rules to serve, in order")
     ap.add_argument("--k", type=int, default=3, help="kNN order for --fusion knn")
     ap.add_argument("--engine", default="cuda", choices=["cuda", "plan", "dense"],
-                    help="cuda: train and serve kNN with the CUDA kernels; "
-                         "plan/dense: the plain PyTorch engines")
+                    help="cuda: the CUDA kernels (field: color step and knn_fuse; "
+                         "lm: ssd_intra); plan/dense: the plain PyTorch engines "
+                         "(lm takes plan)")
     ap.add_argument("--serve_dtype", default="f32", choices=["f32", "bf16"],
                     help="anchor-table storage dtype for the plan/cuda kNN engines")
     # reference flags whose features are not ported yet: refused when set
@@ -164,6 +244,8 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> dict:
     args = parser().parse_args(argv)
+    if args.mode == "lm":
+        return serve_lm(args)
     if args.mode != "field":
         raise NotImplementedError(f"--mode {args.mode} is not ported yet")
     return serve_fields(args)

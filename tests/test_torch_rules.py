@@ -8,9 +8,10 @@ import pytest
 import torch
 
 import repro_torch.core as tr
-from repro_torch import convert
-from repro_torch.kernels import _build, color_step, kernel_matvec, knn_fuse
-from repro_torch.launch import serve
+from repro_torch import convert, models
+from repro_torch.configs import get_config
+from repro_torch.kernels import _build, color_step, gram, kernel_matvec, knn_fuse, ssd_intra
+from repro_torch.launch import profile_lm, serve
 
 torch.set_num_threads(1)
 
@@ -54,6 +55,10 @@ ENTRY_POINTS = {
     "state_from_numpy": lambda: convert.state_from_numpy(
         {"z": np.zeros(3), "coef": np.zeros((2, 2))}),
     "serve.main": lambda: serve.main(["--fields", "2", "--sensors", "8"]),
+    "models.init_params": lambda: models.init_params(get_config("mamba2-370m", variant="smoke")),
+    "serve.main lm": lambda: serve.main(["--mode", "lm", "--variant", "smoke", "--batch", "1",
+                                         "--prompt_len", "4", "--gen", "1"]),
+    "profile_lm.main": lambda: profile_lm.main([]),
 }
 
 
@@ -74,6 +79,8 @@ def test_non_cpu_tensors_never_reach_the_plain_versions(monkeypatch):
     monkeypatch.setattr(color_step, "color_step_ref", _fail)
     monkeypatch.setattr(knn_fuse, "knn_fuse_ref", _fail)
     monkeypatch.setattr(kernel_matvec, "kernel_matvec_ref", _fail)
+    monkeypatch.setattr(ssd_intra, "ssd_intra_ref", _fail)
+    monkeypatch.setattr(gram, "rbf_gram_ref", _fail)
     meta = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt, device="meta")  # noqa
     b, r, d, nz, m = 2, 5, 3, 9, 2
     with pytest.raises(ValueError, match="cpu or cuda"):
@@ -91,7 +98,13 @@ def test_non_cpu_tensors_never_reach_the_plain_versions(monkeypatch):
         )
     with pytest.raises(ValueError, match="cpu or cuda"):
         kernel_matvec.kernel_matvec_batched(meta(4, 2), meta(7, 2), meta(b, 7), gamma=1.0)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ssd_intra.ssd_intra(meta(1, 8, 2, 4), meta(1, 8, 2), meta(1, 8, 2), meta(1, 8, 3),
+                            meta(1, 8, 3), chunk=4)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        gram.rbf_gram(meta(4, 2), meta(7, 2), gamma=1.0)
     assert color_step.launches == knn_fuse.launches == kernel_matvec.launches == 0
+    assert ssd_intra.launches == gram.launches == 0
 
 
 def test_missing_nvcc_raises_and_names_it(monkeypatch, tmp_path):
