@@ -9,21 +9,29 @@ Phases, one line or more each; any failure raises and exits non-zero:
   2. kernels each kernel against its plain PyTorch version on the card, at
              the main path's shapes: color_step in f32 and f64 with a dead
              row and dropped messages, and at D = 40 (lanes beyond a warp)
-             in f64 and in f32 against an f64 witness, knn_fuse in f32,
+             in f64 and in f32 against an f64 witness, one color at a time;
+             then whole 30-sweep color_sweep calls (one launch each, a
+             (30, R, D) delivery mask with 30% drops and a dead row) in f64,
+             in f32 (both with at least 2 CTAs per field's cluster) and in
+             f64 at D = 40, against the plain per-color loop; knn_fuse in f32,
              f64 and with bf16 anchors (identical selected sets),
              kernel_matvec for one and for B fields, ssd_intra at the
              mamba2-370m prefill's shape (B=4, S=512, H=32, P=64, N=128,
-             chunk 256) and, through the chunked scan, at S=300 (padded to
-             a chunk multiple), rbf_gram of the conn query line against the
+             chunk 256), through the chunked scan at S=300 (padded to a
+             chunk multiple), and at a ragged shape (P, N and chunk off the
+             tensor-core tiles), rbf_gram of the conn query line against the
              main path's 8400-anchor table; then each kernel's time, its
              plain version's time, one PyTorch library call's time where
              there is one, and the least time the card could take
-             (``bound_ms``);
+             (``bound_ms``): color_step per 30-sweep call (its one launch)
+             and per color step, ssd_intra against the tensor cores' TF32
+             rate with the float32-FMA bound beside it;
   3. main    the port's launcher at the benched geometry (n=1000 sensors in
              d=2, radius 0.3*sqrt(100/n), rbf gamma=1, lambda=0.1, B=16
              fields, 30 colored sweeps with the CUDA color step, kNN k=3 and
              conn serving of Q=4096 queries), with every launch counter set
-             to 0 before and read after; then the same pipeline through the
+             to 0 before and read after (color_step once per colored_sweep
+             call, 2 in all); then the same pipeline through the
              plain engines on the card, compared end to end;
   4. main-lm the port's launcher in LM mode: mamba2-370m at full width in
              its own bf16, random weights from seed 0, a 4 x 512 prompt
@@ -37,12 +45,14 @@ Phases, one line or more each; any failure raises and exits non-zero:
   5. report  the kernels JSON line, the card's name and power limit, and
              the final {"ok": true, ...} line.
 
-Tolerances are the reference's own.  Per launch, on identical inputs:
+Tolerances are the reference's own.  Per color step, on identical inputs:
 color_step z 1e-5 and coef 1e-3 in f32 (tests/test_scatter_plan.py),
 1e-10 in f64 (at D = 40 in f32, where the rounding of either version
 exceeds 1e-5, both are held to an f64 evaluation of the same inputs and
 the kernel's error may be at most WITNESS_FACTOR times the plain
-version's); knn_fuse 1e-5 (tests/test_serving.py), 1e-10 in f64;
+version's).  Per 30-sweep color_sweep call: z 2e-4 and coef 2e-2 in f32
+(the reference's bound for two reduction orders, tests/test_scatter_plan.py),
+1e-10 in f64.  knn_fuse 1e-5 (tests/test_serving.py), 1e-10 in f64;
 kernel_matvec and rbf_gram 2e-5 absolute and relative, ssd_intra 3e-4
 (tests/test_kernels_pallas.py).
 End to end, after 30 sweeps in which kernel and plan engine sum in
@@ -73,9 +83,9 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM3 bytes/s,
-# float32 and float64 FLOP/s outside the tensor cores.
+# float32 and float64 FLOP/s outside the tensor cores, TF32 on them.
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "tf32": 495e12}
 
 
 def check(cond: bool, what: str) -> None:
@@ -226,6 +236,74 @@ def check_color_step_witness(torch, prob, label: str) -> None:
           f"max error against the f64 witness (tol {WITNESS_FACTOR} x plain) {readings}")
 
 
+SWEEP_TOL = {"float32": (2e-4, 2e-2), "float64": (1e-10, 1e-10)}  # (z, coef)
+
+
+def check_color_sweep(torch, prob, label: str, sweeps: int, min_cluster: int = 1) -> float:
+    """A whole ``sweeps``-sweep color_sweep call (one launch) against the plain
+    per-color loop on identical inputs, with a dead row and 30% of the
+    messages dropped in every sweep; the same call on gram and factor
+    tables that are misaligned views; and one color over 7 sweeps (each
+    member's next item is itself).  f64 is held to 1e-10; f32 to the
+    reference's bound for two reduction orders over many steps (z 2e-4,
+    coef 2e-2, tests/test_scatter_plan.py)."""
+    from repro_torch.kernels import color_step as cs
+
+    z, coef, alive, alive_z, _ = gated_inputs(torch, prob)
+    rng = np.random.default_rng(9)
+    delivered = torch.as_tensor(
+        rng.uniform(size=(sweeps,) + tuple(prob.nbr_idx.shape)) >= 0.3, device=prob.device)
+    c, m = prob.color_members.shape
+    d = prob.nbr_idx.shape[1]
+    plan = cs.launch_plan(prob.gram.element_size(), d, m)
+    args = (prob.nbr_idx, prob.nbr_mask, prob.gram, prob.chol, prob.lam_pad, alive, alive_z,
+            prob.color_members, prob.color_mask, delivered, sweeps)
+    tol_z, tol_c = SWEEP_TOL[str(prob.gram.dtype).split(".")[1]]
+    # the tables as views that start one element into their storage: the
+    # kernel stages each member's blocks by 16-byte-aligned spans
+    gram_v = prob.gram.new_empty(prob.gram.numel() + 1)[1:].view_as(prob.gram)
+    chol_v = prob.chol.new_empty(prob.chol.numel() + 3)[3:].view_as(prob.chol)
+    gram_v.copy_(prob.gram)
+    chol_v.copy_(prob.chol)
+    # one color over several sweeps: each member follows itself
+    n_one = min(7, sweeps)
+    one = (prob.nbr_idx, prob.nbr_mask, prob.gram, prob.chol, prob.lam_pad, alive, alive_z,
+           prob.color_members[:1], prob.color_mask[:1], delivered[:n_one], n_one)
+    runs = {}
+    for name, kernel_args, plain_args in (
+            ("sweeps", args, args), ("views", args[:2] + (gram_v, chol_v) + args[4:], None),
+            ("one color", one, one)):
+        zk, ck = z.clone(), coef.clone()
+        cs.color_sweep(zk, ck, *kernel_args)
+        if plain_args is not None:
+            zp, cp = z.clone(), coef.clone()
+            cs.color_sweep_ref(zp, cp, *plain_args)
+            runs[name + " plain"] = (zp, cp)
+        runs[name] = (zk, ck)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, plain in (("sweeps", "sweeps plain"), ("views", "sweeps plain"),
+                        ("one color", "one color plain")):
+        errs[name] = (max_err(runs[name][0], runs[plain][0]),
+                      max_err(runs[name][1], runs[plain][1]))
+        check(errs[name][0] <= tol_z and errs[name][1] <= tol_c,
+              f"color_sweep {label} ({name}): z err {errs[name][0]:.3g} (tol {tol_z}), "
+              f"coef err {errs[name][1]:.3g} (tol {tol_c})")
+        check(float(runs[name][0][:, -1].abs().max()) == 0.0,
+              f"color_sweep {label} ({name}) wrote the sentinel slot")
+    err_z, err_c = errs["sweeps"]
+    check(plan.cluster >= min_cluster,
+          f"color_sweep {label}: {plan.cluster} CTAs per field, expected >= {min_cluster}")
+    print(f"kernels: color_sweep {label} ok: {sweeps} sweeps x {c} colors in one launch, "
+          f"B={prob.batch_size} D={d} M={m}; plan: one cluster of {plan.cluster} CTAs per "
+          f"field, {plan.warps} warps x {plan.per_warp} members each, {plan.smem_bytes} B "
+          f"shared memory; dead row + 30% drops per sweep, max |dz| {err_z:.3g} (tol {tol_z}), "
+          f"max |dcoef| {err_c:.3g} (tol {tol_c}), sentinel 0; misaligned table views max "
+          f"|dz| {errs['views'][0]:.3g}; one color x {n_one} sweeps max |dz| "
+          f"{errs['one color'][0]:.3g}")
+    return err_z
+
+
 def check_sweep_f64(torch, prob, sweeps: int) -> float:
     """The main path's whole training in f64, kernel engine vs plan engine.
 
@@ -259,60 +337,81 @@ def wide_problem(torch, dtype):
     return prob
 
 
-def color_step_bound(torch, prob, alive, alive_z) -> tuple[float, str]:
-    """Mean over the colors of one sweep of the least time one launch needs.
+def color_step_work(torch, prob, alive, alive_z):
+    """Per color, what one color step needs at the least, from each live
+    (field, member)'s real lanes g (its nbr_mask) and the s of them that send
+    (target slot alive): (constant bytes, z/coef bytes, operations).
 
-    Counted from each live (field, member)'s real lanes g (its nbr_mask)
-    and the s of them that send (target slot alive): the lower triangle of
-    its factor restricted to those lanes, g(g+1)/2; the gram rows of the
-    sending lanes, s*g; z and coef read on the s lanes, coef written on g,
-    z written on s; the mask bytes of g lanes.  Per member: its g slot ids
-    and their liveness bytes, its id, two liveness bytes and lambda.
-    Padded lanes are left out: their factor is the identity, their
-    coefficient stays 0, and what they send is 0 into a slot that holds 0.
-    Operations per (field, member): two triangular solves 2 g^2, the rhs
-    2 s, the evaluation 2 s g.
+    Constant bytes: the lower triangle of its factor restricted to those
+    lanes, g(g+1)/2, and the gram rows of the sending lanes, s*g; per member
+    its g slot ids and their liveness bytes, its id, two liveness bytes and
+    lambda; the mask bytes of its g lanes.  z/coef bytes: z and coef read on
+    the s lanes, coef written on g, z written on s.  Padded lanes are left
+    out: their factor is the identity, their coefficient stays 0, and what
+    they send is 0 into a slot that holds 0.  Operations per (field, member):
+    two triangular solves 2 g^2, the rhs 2 s, the evaluation 2 s g.
     """
     e = prob.gram.element_size()
-    dt = str(prob.gram.dtype).split(".")[1]
     live = prob.color_mask & alive[prob.color_members]  # (C, M)
     idx = prob.nbr_idx[prob.color_members]  # (C, M, D)
     real = prob.nbr_mask[:, prob.color_members] & live[None, :, :, None]  # (B, C, M, D)
     send = real & alive_z[idx][None]
     g = real.sum(-1).double()  # (B, C, M)
     s = send.sum(-1).double()
-    per_field = e * (g * (g + 1) / 2 + s * g + 2 * s + g + s) + g
     g_member = real.any(0).sum(-1).double()  # (C, M) lanes of a member in any field
-    per_member = live.double() * (4 + 1 + 1 + e) + g_member * (4 + 1)
-    nbytes = per_field.sum(dim=(0, 2)) + per_member.sum(-1)  # (C,)
+    const = (e * (g * (g + 1) / 2 + s * g) + g).sum(dim=(0, 2)) + (
+        live.double() * (4 + 1 + 1 + e) + g_member * (4 + 1)).sum(-1)
+    state = (e * (2 * s + g + s)).sum(dim=(0, 2))
     flops = (2 * g * g + 2 * s + 2 * s * g).sum(dim=(0, 2))
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dt] * 1e3
+    return const, state, flops
+
+
+def color_step_bound(torch, prob, alive, alive_z) -> tuple[float, str]:
+    """Mean over the colors of one sweep of the least time one color step
+    needs on its own (every byte of ``color_step_work`` read per step)."""
+    const, state, flops = color_step_work(torch, prob, alive, alive_z)
+    dt = str(prob.gram.dtype).split(".")[1]
+    t_bytes, t_ops = (const + state) / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dt] * 1e3
     by = "bytes" if float(t_bytes.sum()) >= float(t_ops.sum()) else "operations"
     return float(torch.maximum(t_bytes, t_ops).mean()), by
 
 
-def time_color_step(torch, prob) -> dict:
+def color_sweep_bound(torch, prob, alive, alive_z, sweeps: int) -> tuple[float, str]:
+    """The least time one ``sweeps``-sweep call needs: the constant bytes
+    (factors, grams, tables) once per call, z and coef read and written
+    once on the lanes the members touch, and every step's operations."""
+    const, state, flops = color_step_work(torch, prob, alive, alive_z)
+    dt = str(prob.gram.dtype).split(".")[1]
+    nbytes = float(const.sum() + state.sum())  # one sweep touches each lane once
+    return bound(nbytes, sweeps * float(flops.sum()), dt)
+
+
+def time_color_step(torch, prob, sweeps: int) -> dict:
+    """One ``sweeps``-sweep call: device ms (graph replay of its one launch),
+    call ms (CUDA events around the wrapper), the plain per-color loop, and
+    the same per color step (``sweeps`` x n_colors dependent steps)."""
     from repro_torch.core import colored_sweep, init_state
     from repro_torch.kernels import color_step as cs
 
     st = colored_sweep(prob, init_state(prob), n_sweeps=2, engine="plan")
     alive, alive_z = prob.alive, prob.alive_z
-    n_colors = prob.color_members.shape[0]
+    steps = sweeps * prob.color_members.shape[0]
     z, coef = st.z.clone(), st.coef.clone()
 
-    def sweep(fn):
-        def run():
-            for c in range(n_colors):
-                fn(z, coef, prob.nbr_idx, prob.nbr_mask, prob.gram, prob.chol,
-                   prob.lam_pad, alive, alive_z, prob.color_members[c], prob.color_mask[c])
-        return run
+    def call(fn):
+        return lambda: fn(z, coef, prob.nbr_idx, prob.nbr_mask, prob.gram, prob.chol,
+                          prob.lam_pad, alive, alive_z, prob.color_members, prob.color_mask,
+                          None, sweeps)
 
-    ms = graph_ms(sweep(cs.color_step)) / n_colors
-    call_ms = cuda_ms(sweep(cs.color_step)) / n_colors
-    plain_ms = cuda_ms(sweep(cs.color_step_ref), reps=5) / n_colors
-    t_bound, by = color_step_bound(torch, prob, alive, alive_z)
-    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=t_bound,
-                bound_by=by, library_ms=None, launches_per_sweep=n_colors)
+    ms = graph_ms(call(cs.color_sweep), reps=10)
+    call_ms = cuda_ms(call(cs.color_sweep), reps=10)
+    plain_ms = cuda_ms(call(cs.color_sweep_ref), reps=2, warmup=1)
+    t_bound, by = color_sweep_bound(torch, prob, alive, alive_z, sweeps)
+    step_bound, step_by = color_step_bound(torch, prob, alive, alive_z)
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
+                library_ms=None, sweeps=sweeps, dependent_steps=steps,
+                per_step=dict(ms=ms / steps, call_ms=call_ms / steps, plain_ms=plain_ms / steps,
+                              bound_ms=step_bound, bound_by=step_by))
 
 
 def knn_inputs(torch, prob, state, q: int, seed: int):
@@ -450,6 +549,7 @@ def time_matvec(torch, prob, state, xq) -> dict:
 
 SSD_FULL = (4, 512, 32, 64, 128, 256)  # b, s, H, P, N, chunk of the mamba2-370m prefill
 SSD_PADDED_S = 300  # not a chunk multiple: the scan pads it to 512
+SSD_RAGGED = (2, 96, 5, 20, 24, 48)  # P, N and chunk off the MMA tiles, H odd
 SSD_TOL = 3e-4
 GRAM_TOL = 2e-5
 
@@ -492,10 +592,20 @@ def check_ssd_intra(torch):
     err_y, err_st = max_err(y_k, y_p), max_err(st_k, st_p)
     check(excess(y_k, y_p, SSD_TOL) <= SSD_TOL and excess(st_k, st_p, SSD_TOL) <= SSD_TOL,
           f"ssd_chunked_fused at S={SSD_PADDED_S}: |dy| {err_y:.3g}, |dstate| {err_st:.3g}")
+    rb, rs, rh, rp, rn, rc = SSD_RAGGED
+    xr, dtr, ar, bmr, cmr = ssd_inputs(torch, rb, rs, rh, rp, rn, seed=9)
+    dar = torch.cumsum((dtr * ar).reshape(rb, rs // rc, rc, rh), dim=2).reshape(rb, rs, rh)
+    ins_r = (xr, dtr, dar.contiguous(), bmr, cmr)
+    got_r, ref_r = si.ssd_intra(*ins_r, chunk=rc), si.ssd_intra_ref(*ins_r, rc)
+    torch.cuda.synchronize()
+    err_r = max_err(got_r, ref_r)
+    check(bool(torch.isfinite(got_r).all()) and excess(got_r, ref_r, SSD_TOL) <= SSD_TOL,
+          f"ssd_intra at B={rb} S={rs} H={rh} P={rp} N={rn} chunk={rc}: max |err| {err_r:.3g}")
     print(f"kernels: ssd_intra ok: B={b} S={s} H={h} P={p} N={n} chunk={cs}, max |err| "
           f"{err:.3g} (|ref| up to {float(ref.abs().max()):.3g}); chunked scan at "
           f"S={SSD_PADDED_S} (padded to {-(-SSD_PADDED_S // cs) * cs}) vs plain: "
-          f"max |dy| {err_y:.3g}, max |dstate| {err_st:.3g}")
+          f"max |dy| {err_y:.3g}, max |dstate| {err_st:.3g}; ragged B={rb} S={rs} H={rh} "
+          f"P={rp} N={rn} chunk={rc}: max |err| {err_r:.3g} (tol {SSD_TOL} + {SSD_TOL} |ref|)")
     return err, (ins, cs)
 
 
@@ -511,12 +621,16 @@ def time_ssd_intra(torch, ins, cs: int) -> dict:
     # inputs read once, the output written once; per (batch, chunk) the
     # causal pairs l >= m: CB over N, and per head the masked decay (a
     # subtraction, an exp, a product) and M (dt x) over P; dt x once
+    # The kernel runs both products on the tensor cores in 3xTF32, so its
+    # least time is the larger of the bytes and three TF32 passes of the
+    # causal operations; the float32-FMA bound is printed beside it.
     pairs = b * (s // cs) * cs * (cs + 1) // 2
     nbytes = 4 * (2 * x.numel() + 2 * dt.numel() + 2 * bm.numel())
     flops = pairs * (2 * n + h * (2 * p + 3)) + x.numel()
-    t, by = bound(nbytes, flops, "float32")
+    t, by = bound(nbytes, 3 * flops, "tf32")
+    t_fma, by_fma = bound(nbytes, flops, "float32")
     return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=t, bound_by=by,
-                library_ms=None)
+                library_ms=None, bound_f32_fma_ms=t_fma, bound_f32_fma_by=by_fma)
 
 
 def check_gram(torch, x1, x2, gamma: float) -> float:
@@ -666,6 +780,9 @@ def run() -> int:
     check_color_step(torch, prob64, "float64")
     check_color_step(torch, wide_problem(torch, torch.float64), "float64, D > 32")
     check_color_step_witness(torch, wide_problem(torch, torch.float32), "float32, D > 32")
+    check_color_sweep(torch, prob64, "float64", args.sweeps, min_cluster=2)
+    check_color_sweep(torch, prob32, "float32", args.sweeps, min_cluster=2)
+    check_color_sweep(torch, wide_problem(torch, torch.float64), "float64, D = 40", args.sweeps)
     check_sweep_f64(torch, prob64, args.sweeps)
     st32 = colored_sweep(prob32, init_state(prob32), n_sweeps=5, engine="plan")
     st64 = colored_sweep(prob64, init_state(prob64), n_sweeps=5, engine="plan")
@@ -680,7 +797,7 @@ def run() -> int:
     anchor_table = conn_inputs(torch, prob32, st32, xq_line)[1][0].contiguous()  # (8400, 2)
     err_gram = check_gram(torch, xq_line, anchor_table, prob32.kernel.gamma)
     timing = {
-        "color_step": time_color_step(torch, prob32),
+        "color_step": time_color_step(torch, prob32, args.sweeps),
         "knn_fuse": time_knn(torch, prob32, st32),
         "kernel_matvec": time_matvec(torch, prob32, st32, xq_line),
         "ssd_intra": time_ssd_intra(torch, ssd_ins, ssd_cs),
@@ -702,6 +819,9 @@ def run() -> int:
     launches = {name: mods[name].launches for name in field}
     print("main: kernel launches " + json.dumps(launches))
     check(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
+    check(launches["color_step"] == res["train_calls"],
+          f"main: color_step launched {launches['color_step']} times, expected one launch "
+          f"per colored_sweep call ({res['train_calls']})")
     prob, state, xq = res["problem"], res["state"], res["xq"]
     b, q = args.fields, args.queries
     for key in ("knn", "conn"):

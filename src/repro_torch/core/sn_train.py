@@ -20,9 +20,10 @@ Engines of ``colored_sweep``:
   ``"onehot"``  the dense one-hot GEMM realization, the simple oracle the
                 plans are tested against (plan == onehot bit for bit);
   ``"cuda"``    the hand-written color-step kernel
-                (``repro_torch.kernels.color_step``), the counterpart of
-                the reference's ``"pallas"``.  On CPU tensors it runs the
-                kernel's plain PyTorch version.
+                (``repro_torch.kernels.color_step.color_sweep``, one launch
+                per call), the counterpart of the reference's
+                ``"pallas"``.  On CPU tensors it runs the kernel's plain
+                PyTorch version.
 
 The local solves are forward and back substitution over the cached
 Cholesky factors, vectorized over all B*M lanes, and not LAPACK's
@@ -425,19 +426,17 @@ def _colored_core(
     n_colors = problem.color_members.shape[0]
 
     if engine == "cuda":
-        from ..kernels.color_step import color_step
+        from ..kernels.color_step import color_sweep
 
         # The kernel writes z and coef in place (the reference returns new
-        # buffers); the caller's state is copied once per call instead.
+        # buffers); the caller's state is copied once per call instead.  All
+        # n_sweeps x n_colors color steps are one launch.
         z, coef = z.clone(), coef.clone()
-        for t in range(n_sweeps):
-            deliv_t = None if delivered is None else delivered[t]
-            for c in range(n_colors):
-                color_step(
-                    z, coef, problem.nbr_idx, nbr_mask, gram, chol,
-                    problem.lam_pad, alive_row, alive_slot,
-                    problem.color_members[c], problem.color_mask[c], deliv_t,
-                )
+        color_sweep(
+            z, coef, problem.nbr_idx, nbr_mask, gram, chol, problem.lam_pad,
+            alive_row, alive_slot, problem.color_members, problem.color_mask,
+            delivered, n_sweeps,
+        )
         return z, coef
 
     for t in range(n_sweeps):

@@ -9,7 +9,9 @@ float32:
     Y  = M (dt x)
 
 so the (cs, cs, H) decay tensor of the plain version never reaches device
-memory.  Bound on the H100: the float32 FMAs of ``M (dt x)`` and ``CB``.
+memory.  Both products run on the H100's tensor cores in 3xTF32 (float32
+accuracy from three TF32 products per term); bound on the H100: the bytes
+of its inputs and output (see the kernel source).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ _SIG = {
 }
 MAX_HEAD_DIM = 64  # P: the kernel's register tile covers 64 columns
 MAX_CHUNK = 512  # cs: the CB tiles of one chunk row live in shared memory
-BLOCK_H = 4  # heads per block, sharing one chunk's CB tiles
+BLOCK_H = 4  # heads per block; two blocks of a cluster share one chunk's CB tiles
 
 
 def ssd_intra_ref(x, dt, da_cum, bmat, cmat, chunk: int) -> torch.Tensor:
@@ -71,8 +73,10 @@ def ssd_intra(
 
     x (B, S, H, P); dt and da_cum (B, S, H), da_cum the inclusive cumsum of
     dt * a within each chunk; bmat, cmat (B, S, N); all float32, S % chunk
-    == 0.  ``block_h`` heads share one block (and its CB tiles); H need not
-    be a multiple of it.  CPU tensors run the plain version.
+    == 0; any 1 <= chunk <= 512, 1 <= P <= 64, N and H.  ``block_h`` heads
+    share one block; two blocks of a cluster (2 ``block_h`` heads) share one
+    set of CB tiles, so CB is formed ceil(H / block_h) / 2 times per chunk.
+    H need not be a multiple of it.  CPU tensors run the plain version.
     """
     global launches
     if x.device.type == "cpu":

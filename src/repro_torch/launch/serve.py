@@ -62,6 +62,9 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+TIMED_CALLS = 2  # calls of fn per _timed: the warm-up and the timed one
+
+
 def _timed(fn, dev: torch.device):
     """Run ``fn`` once to warm up, then once timed; returns (result, seconds)."""
     fn()
@@ -93,7 +96,8 @@ def serve_fields(args: argparse.Namespace) -> dict:
     """Build, train and serve one batch of fields; prints and returns the results.
 
     Returns ``problem``, the trained ``state``, the query grid ``xq``, the
-    (B, Q) answers under each ``--fusion`` rule and the timings.
+    (B, Q) answers under each ``--fusion`` rule, the timings and
+    ``train_calls`` (``colored_sweep`` calls, the warm-up included).
     """
     for flag in ("stream", "churn", "faults", "energy_tau"):
         if getattr(args, flag):
@@ -120,7 +124,7 @@ def serve_fields(args: argparse.Namespace) -> dict:
     if args.dim > 1:
         xq = np.concatenate([xq] + [np.zeros_like(xq)] * (args.dim - 1), axis=1)
     xq = torch.as_tensor(xq, device=dev)
-    res = dict(problem=prob, state=state, xq=xq, train_s=train_s)
+    res = dict(problem=prob, state=state, xq=xq, train_s=train_s, train_calls=TIMED_CALLS)
     for rule in args.fusion:
         if rule == "knn":
             plan = None if args.engine == "dense" else make_serving_plan(prob, k=args.k)

@@ -77,6 +77,7 @@ def _fail(*a, **k):
 def test_non_cpu_tensors_never_reach_the_plain_versions(monkeypatch):
     """A tensor that is not on the CPU launches the kernel or raises."""
     monkeypatch.setattr(color_step, "color_step_ref", _fail)
+    monkeypatch.setattr(color_step, "color_sweep_ref", _fail)
     monkeypatch.setattr(knn_fuse, "knn_fuse_ref", _fail)
     monkeypatch.setattr(kernel_matvec, "kernel_matvec_ref", _fail)
     monkeypatch.setattr(ssd_intra, "ssd_intra_ref", _fail)
@@ -89,6 +90,13 @@ def test_non_cpu_tensors_never_reach_the_plain_versions(monkeypatch):
             meta(b, r, d, dt=torch.bool), meta(b, r, d, d), meta(b, r, d, d), meta(r),
             meta(r, dt=torch.bool), meta(nz, dt=torch.bool), meta(m, dt=torch.int32),
             meta(m, dt=torch.bool),
+        )
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        color_step.color_sweep(
+            meta(b, nz), meta(b, r, d), meta(r, d, dt=torch.int32),
+            meta(b, r, d, dt=torch.bool), meta(b, r, d, d), meta(b, r, d, d), meta(r),
+            meta(r, dt=torch.bool), meta(nz, dt=torch.bool), meta(3, m, dt=torch.int32),
+            meta(3, m, dt=torch.bool), meta(4, r, d, dt=torch.bool), 4,
         )
     with pytest.raises(ValueError, match="cpu or cuda"):
         knn_fuse.knn_fuse_fused(

@@ -72,6 +72,77 @@ def test_ssd_intra_ref_matches_pallas_kernel(b, s, h, p, n, chunk, block_h):
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=3e-4, rtol=3e-4)
 
 
+def _tf32(a, rounding):
+    """float32 -> TF32 (10 mantissa bits) by round-to-nearest-even or truncation."""
+    bits = np.asarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    if rounding == "rne":
+        bits = bits + 0x0FFF + ((bits >> 13) & 1)
+    return (bits & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+
+def _tc_matmul(a, b, passes, rounding):
+    """a @ b on tensor cores as the kernel issues it: one TF32 product
+    (passes=1), or 3xTF32 (passes=3): hi = tf32(v), lo = tf32(v - hi), and
+    lo_a hi_b + hi_a lo_b + hi_a hi_b with exact products and a float32 result."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    ah, bh = _tf32(a, rounding), _tf32(b, rounding)
+    wide = lambda u, v: u.astype(np.float64) @ v.astype(np.float64)  # noqa: E731
+    out = wide(ah, bh)
+    if passes == 3:
+        out = wide(_tf32(a - ah, rounding), bh) + wide(ah, _tf32(b - bh, rounding)) + out
+    return out.astype(np.float32)
+
+
+def _ssd_intra_emulated(x, dt, da_cum, bm, cm, chunk, passes, rounding):
+    """The kernel's arithmetic in numpy: CB and M (x) through ``_tc_matmul``,
+    the masked decay in float32; passes=0 is the float64 answer."""
+    b, s, h, _ = x.shape
+    y = np.zeros(x.shape, np.float64)
+    tril = np.tril(np.ones((chunk, chunk), bool))
+    for bi in range(b):
+        for z0 in range(0, s, chunk):
+            rows = slice(z0, z0 + chunk)
+            c64, b64 = cm[bi, rows].astype(np.float64), bm[bi, rows].astype(np.float64)
+            cb = c64 @ b64.T if passes == 0 else _tc_matmul(cm[bi, rows], bm[bi, rows].T,
+                                                              passes, rounding)
+            for hh in range(h):
+                d = da_cum[bi, rows, hh]
+                wd = np.float64 if passes == 0 else np.float32
+                diff = np.where(tril, d[:, None].astype(wd) - d[None, :].astype(wd), -np.inf)
+                m = np.where(tril, cb * np.exp(diff) * dt[bi, rows, hh][None, :].astype(wd), 0)
+                xs = x[bi, rows, hh]
+                y[bi, rows, hh] = (m @ xs.astype(np.float64) if passes == 0 else
+                                   _tc_matmul(m.astype(np.float32), xs, passes, rounding))
+    return y
+
+
+@pytest.mark.parametrize("rounding", ["rne", "truncate"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk,scale", [
+    shape[:6] + (1.0,) for shape in SSD_SHAPES] + [(1, 256, 2, 64, 128, 256, 2.0)])
+def test_3xtf32_holds_the_bound_and_one_pass_tf32_does_not(b, s, h, p, n, chunk, scale,
+                                                           rounding):
+    """Why the kernel runs 3xTF32: against the float64 answer, three TF32
+    products per term stay within 3e-4 absolute + relative (the kernel's
+    bound), one TF32 product does not.  The last case has |y| near 300, as
+    the mamba2-370m prefill's shape does on the card.  The kernel splits by
+    truncation (bit masks); round-to-nearest-even is the finer split."""
+    s -= s % chunk
+    x, dt, a, bm, cm = _ssd_inputs(s * 7 + h, b, s, h, p, n)
+    x = (x * scale).astype(np.float32)
+    a = -np.linspace(1.0, 16.0, h).astype(np.float32)  # the model's A range
+    da_cum = np.cumsum((dt * a).reshape(b, s // chunk, chunk, h), axis=2).reshape(b, s, h)
+    ins = (x, dt, da_cum.astype(np.float32), bm, cm, chunk)
+    want = _ssd_intra_emulated(*ins, passes=0, rounding=rounding)
+
+    def excess(got):
+        return float((np.abs(got - want) - 3e-4 * np.abs(want)).max())
+
+    assert excess(_ssd_intra_emulated(*ins, passes=3, rounding=rounding)) <= 3e-4
+    assert excess(_ssd_intra_emulated(*ins, passes=1, rounding=rounding)) > 3e-4
+    if scale > 1:
+        assert 250 < float(np.abs(want).max()) < 400
+
+
 @pytest.mark.parametrize("b,s,h,p,n,chunk,block_h", SSD_SHAPES)
 def test_ssd_chunked_fused_matches_reference(b, s, h, p, n, chunk, block_h):
     """Both paddings (S to a chunk multiple; H only on the JAX side)."""
