@@ -13,8 +13,10 @@ widened before any arithmetic; queries, sensor positions and the selection
 keep full precision; evaluation runs in the query dtype and the output is
 in the coefficient dtype (which equals the query dtype here).
 
-Bound on the H100: bytes (the picked sensors' anchor rows); the selection
-runs once per query instead of once per field as on the TPU.
+Bound on the H100: bytes (the picked sensors' anchor rows).  The kernel
+runs one warp per query: the selection once per query (not once per field
+as on the TPU), as warp-wide arg-mins, then the evaluation spread over the
+lanes.
 """
 
 from __future__ import annotations
@@ -37,14 +39,16 @@ _ANCHOR_DTYPES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 
 def default_block_q() -> int:
-    """Queries per thread block of the CUDA kernel.
+    """Queries per thread block of the CUDA kernel: one warp per query.
 
-    On the TPU the tile was sized by VMEM and doubled for bf16 anchors; on
-    the H100 a block keeps only its picks in shared memory, so the tile is
-    sized for parallelism (Q / 32 blocks) and does not depend on the
+    On the TPU the tile was sized by VMEM and doubled for bf16 anchors.  On
+    the H100 a query's selection and evaluation are one warp's work (its
+    candidates and picks sit in shared memory), so the block is sized for
+    parallelism: 8 warps, so Q = 4096 gives 512 blocks, about 4 per SM of
+    the 132, and the whole grid is one wave.  It does not depend on the
     anchor storage dtype.
     """
-    return 32
+    return 8
 
 
 def knn_fuse_ref(

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -120,28 +121,9 @@ def serve_fields(args: argparse.Namespace) -> dict:
         f"{train_s:.4f}s -> {b / train_s:.1f} fields/s"
     )
 
-    xq = np.linspace(-1, 1, args.queries)[:, None].astype(np.float32)
-    if args.dim > 1:
-        xq = np.concatenate([xq] + [np.zeros_like(xq)] * (args.dim - 1), axis=1)
-    xq = torch.as_tensor(xq, device=dev)
+    xq = query_grid(args, dev)
     res = dict(problem=prob, state=state, xq=xq, train_s=train_s, train_calls=TIMED_CALLS)
-    for rule in args.fusion:
-        if rule == "knn":
-            plan = None if args.engine == "dense" else make_serving_plan(prob, k=args.k)
-            cdt = None if args.engine == "dense" or args.serve_dtype == "f32" else args.serve_dtype
-            run = lambda: fusion.fuse(  # noqa: E731
-                prob, state, xq, "knn", k=args.k, engine=args.engine, plan=plan,
-                compute_dtype=cdt,
-            )
-            note = f"knn k={args.k} engine={args.engine}"
-            if cdt is not None:
-                note += f" dtype={args.serve_dtype}"
-            if plan is not None:
-                note += f" (plan: {plan.n_cells} cells, K_max={plan.k_max})"
-        else:
-            anchors, coefs = fusion.global_coefficients(prob, state, rule="conn")
-            run = lambda: kernel_matvec(xq, anchors, coefs, gamma=args.gamma)  # noqa: E731
-            note = "conn (global coefficients + fused matvec)"
+    for rule, note, run in field_requests(args, prob, state, xq):
         out, dt = _timed(run, dev)
         print(
             f"query[{note}]: {args.queries} points x {b} fields in {dt * 1e3:.3f}ms "
@@ -151,6 +133,40 @@ def serve_fields(args: argparse.Namespace) -> dict:
         res[rule] = out
         res[f"{rule}_s"] = dt
     return res
+
+
+def query_grid(args: argparse.Namespace, dev: torch.device) -> torch.Tensor:
+    """The launcher's (Q, dim) request grid: Q points on [-1, 1] along axis 0."""
+    xq = np.linspace(-1, 1, args.queries)[:, None].astype(np.float32)
+    if args.dim > 1:
+        xq = np.concatenate([xq] + [np.zeros_like(xq)] * (args.dim - 1), axis=1)
+    return torch.as_tensor(xq, device=dev)
+
+
+def field_requests(args: argparse.Namespace, prob, state, xq) -> list:
+    """(rule, note, request) per ``--fusion`` rule; a request answers the
+    grid ``xq`` for all B fields.  Per-request work (plans, global
+    coefficients) that depends only on the trained state is done here."""
+    out = []
+    for rule in args.fusion:
+        if rule == "knn":
+            plan = None if args.engine == "dense" else make_serving_plan(prob, k=args.k)
+            cdt = None if args.engine == "dense" or args.serve_dtype == "f32" else args.serve_dtype
+            run = functools.partial(
+                fusion.fuse, prob, state, xq, "knn", k=args.k, engine=args.engine, plan=plan,
+                compute_dtype=cdt,
+            )
+            note = f"knn k={args.k} engine={args.engine}"
+            if cdt is not None:
+                note += f" dtype={args.serve_dtype}"
+            if plan is not None:
+                note += f" (plan: {plan.n_cells} cells, K_max={plan.k_max})"
+        else:
+            anchors, coefs = fusion.global_coefficients(prob, state, rule="conn")
+            run = functools.partial(kernel_matvec, xq, anchors, coefs, gamma=args.gamma)
+            note = "conn (global coefficients + fused matvec)"
+        out.append((rule, note, run))
+    return out
 
 
 @torch.inference_mode()

@@ -11,7 +11,7 @@ import repro_torch.core as tr
 from repro_torch import convert, models
 from repro_torch.configs import get_config
 from repro_torch.kernels import _build, color_step, gram, kernel_matvec, knn_fuse, ssd_intra
-from repro_torch.launch import profile_lm, serve
+from repro_torch.launch import profile_field, profile_lm, serve
 
 torch.set_num_threads(1)
 
@@ -59,6 +59,7 @@ ENTRY_POINTS = {
     "serve.main lm": lambda: serve.main(["--mode", "lm", "--variant", "smoke", "--batch", "1",
                                          "--prompt_len", "4", "--gen", "1"]),
     "profile_lm.main": lambda: profile_lm.main([]),
+    "profile_field.main": lambda: profile_field.main([]),
 }
 
 
