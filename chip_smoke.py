@@ -40,6 +40,23 @@ Phases, one line or more each; any failure raises and exits non-zero:
              color_step 2 (colored_sweep's warm-up and timed call), knn_fuse
              2 and kernel_matvec 2 (each request's); then the same pipeline
              through the plain engines on the card, compared end to end;
+  3b. main-stream the port's launcher with --stream 2048 --on_full evict
+             --refresh_sweeps 5 at the same geometry (D = max degree + 7),
+             launch counters set to 0 before and read after: color_step =
+             the train calls + 1 refresh, knn_fuse 2, kernel_matvec 2; its
+             factors against rebuild_chol (1e-4), then the same pipeline on
+             the plain engines (identical receipts and streamed tables, z
+             2e-4, coef 2e-2, kNN 2e-4) and its conn inputs through
+             kernel_matvec against the plain version or a float64 witness;
+             then dense arrival waves on the same geometry with beta 1.0 /
+             0.9 alternating over the fields: one partial wave under drop,
+             10 under evict (16,000 arrivals each, so the windows wrap),
+             two of them held row by row to sequential absorbs (bitwise,
+             the factors 1e-5), the factors to rebuild_chol (5e-5), and
+             color_sweep (5 sweeps), knn_fuse and kernel_matvec to their
+             plain versions on the streamed state; with the times of
+             absorb_many, absorb_wave, rebuild_chol, the refresh, the
+             requests and kernel_matvec on the streamed anchors;
   4. main-lm the port's launcher in LM mode: mamba2-370m at full width in
              its own bf16, random weights from seed 0, a 4 x 512 prompt
              and 32 greedy tokens, with every launch counter set to 0
@@ -49,8 +66,10 @@ Phases, one line or more each; any failure raises and exits non-zero:
              same weights, compared on the prefill's logits, every layer's
              final SSM state and 4 teacher-forced decode steps, with an
              f64 run of the plain route as the witness;
-  5. report  the kernels JSON line, the card's name and power limit, and
-             the final {"ok": true, ...} line.
+  5. report  the kernels JSON line (``launches``: the sum over the field,
+             stream and LM paths' runs, each path's count beside it), the
+             card's name and power limit, and the final {"ok": true, ...}
+             line.
 
 Tolerances are the reference's own.  Per color step, on identical inputs:
 color_step z 1e-5 and coef 1e-3 in f32 (tests/test_scatter_plan.py),
@@ -566,14 +585,16 @@ def matvec_f64(torch, xq, anchors, coef, gamma: float):
     return torch.stack(rows)
 
 
-def matvec_case(torch, xq, anchors, coef, gamma: float, label: str, held: bool = True):
+def matvec_case(torch, xq, anchors, coef, gamma: float, label: str,
+                held: bool | None = True):
     """kernel_matvec against its plain version and both against float64.
 
     ``held``: the kernel must be within MATVEC_TOL absolute and relative of
-    the plain version.  Otherwise (unit coefficients on thousands of
-    anchors, where the float32 rounding of either summation order exceeds
-    that) its error against float64 may be at most WITNESS_FACTOR times the
-    plain version's.  Returns (kernel output, reading)."""
+    the plain version.  False (unit coefficients on thousands of anchors,
+    where the float32 rounding of either summation order exceeds that): its
+    error against float64 may be at most WITNESS_FACTOR times the plain
+    version's.  None (a streamed state, every anchor non-zero): either of
+    the two.  Returns (kernel output, reading)."""
     from repro_torch.kernels import kernel_matvec as km
 
     got = km.kernel_matvec_batched(xq, anchors, coef, gamma=gamma)
@@ -582,10 +603,14 @@ def matvec_case(torch, xq, anchors, coef, gamma: float, label: str, held: bool =
     torch.cuda.synchronize()
     r = dict(err=max_err(got, ref), kernel_f64=max_err(got, wit), plain_f64=max_err(ref, wit),
              max_abs=float(wit.abs().max()))
-    ok = (excess(got, ref, MATVEC_TOL) <= MATVEC_TOL if held
-          else r["kernel_f64"] <= WITNESS_FACTOR * r["plain_f64"])
-    how = (f"within {MATVEC_TOL} + {MATVEC_TOL} |ref|" if held
-           else f"f64 error <= {WITNESS_FACTOR} x plain's")
+    direct = excess(got, ref, MATVEC_TOL) <= MATVEC_TOL
+    witness = r["kernel_f64"] <= WITNESS_FACTOR * r["plain_f64"]
+    within = f"within {MATVEC_TOL} + {MATVEC_TOL} |ref|"
+    f64 = f"f64 error <= {WITNESS_FACTOR} x plain's"
+    if held or (held is None and direct):
+        ok, how = direct, within
+    else:
+        ok, how = witness, f64
     check(got.shape == ref.shape and bool(torch.isfinite(got).all()) and ok,
           f"kernel_matvec {label}: not {how}: {json.dumps(r)}")
     return got, (f"{label} ({how}): max |err| {r['err']:.3g}, vs f64 kernel "
@@ -659,6 +684,16 @@ def check_matvec(torch, prob, state, xq) -> float:
     return err_m
 
 
+def matvec_floor(xq, anchors, coef) -> tuple[float, str, int]:
+    """kernel_matvec's least time on these inputs: the non-zero terms this data
+    needs (exp-bound at the field shapes); returns (ms, by, non-zero anchors)."""
+    q, d = xq.shape
+    nonzero = int((coef != 0).sum())
+    nbytes = 4 * (q * d + anchors.numel() + coef.numel() + coef.shape[0] * q)
+    t, by = bound(nbytes, q * nonzero * (2 * d + 8), "float32", q * nonzero)
+    return t, by, nonzero
+
+
 def time_matvec(torch, prob, state, xq) -> dict:
     from repro_torch.kernels import kernel_matvec as km
 
@@ -670,25 +705,17 @@ def time_matvec(torch, prob, state, xq) -> dict:
     xb = xq32[None].expand(anchors.shape[0], -1, -1)
     library_ms = cuda_ms(
         lambda: torch.exp(-g * torch.cdist(xb, anchors) ** 2) @ coefs[..., None], reps=5)
-    q, d = xq32.shape
-    b, n, _ = anchors.shape
-
-    def floor(coef, n_anchor_rows):
-        nonzero = int((coef != 0).sum())  # the pairs whose terms this data needs
-        nbytes = 4 * (q * d + n_anchor_rows * d + coef.numel() + coef.shape[0] * q)
-        return bound(nbytes, q * nonzero * (2 * d + 8), "float32", q * nonzero), nonzero
-
-    (t, by), nonzero = floor(coefs, b * n)
+    t, by, nonzero = matvec_floor(xq32, anchors, coefs)
     # every anchor non-zero: the state once stream slots hold arrivals
     full = streaming_coefs(torch, coefs, seed=5)
-    (t_full, by_full), _ = floor(full, b * n)
+    t_full, by_full, _ = matvec_floor(xq32, anchors, full)
     all_nonzero = dict(ms=graph_ms(lambda: km.kernel_matvec_batched(xq32, anchors, full, gamma=g)),
                        bound_ms=t_full, bound_by=by_full, nonzero_anchors=int(full.numel()))
     # one field (B = 1, the TPU's single-field kernel): the sensor anchors
     pos = prob.topology.positions.contiguous()
     c1 = torch.as_tensor(np.random.default_rng(4).normal(size=(1, pos.shape[0])),
                          dtype=torch.float32, device=pos.device)
-    (t1, by1), _ = floor(c1, pos.shape[0])
+    t1, by1, _ = matvec_floor(xq32, pos, c1)
     single = dict(
         ms=graph_ms(lambda: km.kernel_matvec_batched(xq32, pos, c1, gamma=g)),
         plain_ms=cuda_ms(lambda: km.kernel_matvec_ref(xq32, pos, c1, g)),
@@ -816,6 +843,243 @@ def time_gram(torch, x1, x2, gamma: float) -> dict:
     t, by = bound(4 * (m * n + (m + n) * d), m * n * (2 * d + 6), "float32", m * n)
     return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=t, bound_by=by,
                 library_ms=library_ms)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: the streaming path.
+# ---------------------------------------------------------------------------
+
+STREAM_FLAGS = ["--stream", "2048", "--on_full", "evict", "--refresh_sweeps", "5"]
+WAVE_ROUNDS = 10  # dense evicting waves after the partial one: the windows wrap
+WAVE_BETAS = (1.0, 0.9)  # alternating over the fields
+WAVE_PAIRS = 16  # (field, sensor) pairs held against sequential absorbs per checked wave
+STREAM_Z_TOL, STREAM_COEF_TOL = 2e-4, 2e-2  # the long-chain sweep bound
+STREAM_KNN_TOL = 2e-4
+
+
+def stream_args():
+    from repro_torch.launch import serve
+
+    argv = main_args()[0] + STREAM_FLAGS
+    return argv, serve.parser().parse_args(argv)
+
+
+def run_stream_launcher(torch, mods) -> tuple[dict, dict]:
+    """The launcher with --stream at the field path's geometry, launches counted;
+    then its streamed state held to the same pipeline on the plain engines.
+    Returns (launches, readings)."""
+    from repro_torch.core import colored_sweep, streaming
+    from repro_torch.kernels import kernel_matvec as km
+    from repro_torch.launch import serve
+
+    argv, args = stream_args()
+    print("main-stream: python -m repro_torch.launch.serve " + " ".join(argv))
+    for mod in mods.values():
+        mod.launches = 0
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = {name: mod.launches for name, mod in mods.items()}
+    print("main-stream: kernel launches " + json.dumps(launches)
+          + f" ({res['train_calls']} train calls + 1 refresh)")
+    expected = {"color_step": res["train_calls"] + 1, "knn_fuse": serve.TIMED_CALLS,
+                "kernel_matvec": serve.TIMED_CALLS, "ssd_intra": 0, "rbf_gram": 0}
+    check(launches == expected, f"main-stream: kernel launches {launches}, expected {expected}")
+    info, prob, state, xq = res["stream"], res["problem"], res["state"], res["xq"]
+    b, q = args.fields, args.queries
+    check(info["absorbed"] > 0 and info["absorbed"] + info["dropped"] == args.stream,
+          f"main-stream: receipts {info['absorbed']} absorbed + {info['dropped']} dropped "
+          f"!= {args.stream}")
+    occupied = int((prob.nbr_mask & (prob.nbr_idx >= prob.n)).sum())
+    print(f"main-stream: receipts: {info['absorbed']} absorbed, {info['evicted']} evicted, "
+          f"{info['dropped']} dropped of {args.stream}; D={prob.topology.d_max}, "
+          f"{prob.n_stream} stream slots per field, {occupied} occupied over {b} fields")
+    for key in ("knn", "conn"):
+        check(res[key].shape == (b, q) and bool(torch.isfinite(res[key]).all()),
+              f"main-stream {key}: shape {tuple(res[key].shape)} or non-finite values")
+    err_chol = max_err(streaming.rebuild_chol(prob), prob.chol)
+    check(prob.chol.is_contiguous() and err_chol <= 1e-4,
+          f"main-stream: chol vs rebuild_chol {err_chol:.3g} (tol 1e-4)")
+
+    # the same pipeline on the plain engines (train, refresh and kNN)
+    plain = serve.main(argv + ["--engine", "plan"])
+    torch.cuda.synchronize()
+    pp, ps = plain["problem"], plain["state"]
+    for key in ("absorbed", "evicted"):
+        check(torch.equal(getattr(plain["stream"]["receipt"], key), getattr(info["receipt"], key)),
+              f"main-stream: {key} flags differ between the engines' runs")
+    for name in ("nbr_pos", "nbr_mask", "stream_pos", "gram", "anchor_w"):
+        check(torch.equal(getattr(pp, name), getattr(prob, name)),
+              f"main-stream: streamed {name} differs between the engines' runs")
+    err_z, err_c = max_err(state.z[:, :-1], ps.z[:, :-1]), max_err(state.coef, ps.coef)
+    err_knn = max_err(res["knn"], plain["knn"])
+    err_conn_e2e = max_err(res["conn"], plain["conn"])
+    print(f"main-stream: vs plain engines on the card: max |dz| {err_z:.3g}, |dcoef| "
+          f"{err_c:.3g}, knn {err_knn:.3g}, conn {err_conn_e2e:.3g}; chol vs rebuild_chol "
+          f"{err_chol:.3g}")
+    check(err_z <= STREAM_Z_TOL and err_c <= STREAM_COEF_TOL,
+          "main-stream: streamed state differs from the plan engine's")
+    check(err_knn <= STREAM_KNN_TOL, "main-stream: kNN answers differ from the plain engines'")
+    xq32, anchors, coefs = conn_inputs(torch, prob, state, xq)
+    _, line = matvec_case(torch, xq32, anchors, coefs, args.gamma, "streamed conn route",
+                          held=None)
+    print(f"main-stream: kernel_matvec {line}")
+
+    # times on the card
+    g = args.gamma
+    t_mv, by_mv, nonzero = matvec_floor(xq32, anchors, coefs)
+    readings = dict(
+        absorb_many_ms_per_arrival=info["window_s"] / info["window"] * 1e3,
+        absorb_window=info["window"],
+        refresh_s=info["refresh_s"],
+        refresh_ms=cuda_ms(lambda: colored_sweep(prob, state, n_sweeps=args.refresh_sweeps,
+                                                 engine="cuda"), reps=5, warmup=1),
+        knn_request_ms=res["knn_s"] * 1e3,
+        conn_request_ms=res["conn_s"] * 1e3,
+        rebuild_chol_ms=cuda_ms(lambda: streaming.rebuild_chol(prob), reps=5, warmup=1),
+        kernel_matvec_ms=graph_ms(lambda: km.kernel_matvec_batched(xq32, anchors, coefs,
+                                                                   gamma=g)),
+        kernel_matvec_nonzero_anchors=nonzero,
+        kernel_matvec_anchors=int(coefs.numel()),
+        kernel_matvec_bound_ms=t_mv, kernel_matvec_bound_by=by_mv,
+        kernel_matvec_plain_ms=cuda_ms(lambda: km.kernel_matvec_ref(xq32, anchors, coefs, g),
+                                       reps=5),
+        err_z=err_z, err_coef=err_c, err_knn=err_knn, err_conn_e2e=err_conn_e2e,
+        err_chol_rebuild=err_chol,
+        # the two lane-bound kernels at the streamed geometry's wider D
+        color_step=time_color_step(torch, prob, args.sweeps),
+        knn_fuse=time_knn(torch, prob, state),
+    )
+    return launches, readings
+
+
+def wave_pairs(torch, prob, mask, fields: int):
+    """WAVE_PAIRS (field, sensor) pairs over every field (both betas): the
+    highest-degree sensors (the first to wrap their windows), each with an
+    arrival under ``mask``."""
+    order = torch.argsort(prob.topology.degrees, descending=True, stable=True).cpu().numpy()
+    fs, ss = [], []
+    for i in range(WAVE_PAIRS):
+        f = i % fields
+        s = next(int(s) for s in order if mask[f, s] and int(s) not in ss)
+        fs.append(f)
+        ss.append(s)
+    dev = prob.device
+    return torch.as_tensor(fs, device=dev), torch.as_tensor(ss, device=dev)
+
+
+def compare_wave_rows(torch, pw, sw, pq, sq, f, s, label: str) -> float:
+    """The wave's rows (f, s) against sequential absorbs': every table bitwise,
+    the factors within 1e-5; returns the factors' max |err|."""
+    ids = pw.nbr_idx[s].long()  # (P, D)
+    live = ids != pw.sentinel
+    slot = torch.clamp(ids - pw.n, 0, pw.n_stream - 1)
+    stream = live & (ids >= pw.n)
+    for name in ("nbr_pos", "nbr_mask", "gram", "anchor_w"):
+        check(torch.equal(getattr(pw, name)[f, s], getattr(pq, name)[f, s]),
+              f"main-stream wave {label}: {name} differs from sequential absorbs")
+    check(torch.equal(pw.stream_pos[f[:, None], slot][stream],
+                      pq.stream_pos[f[:, None], slot][stream]),
+          f"main-stream wave {label}: stream_pos differs from sequential absorbs")
+    check(torch.equal(sw.z[f[:, None], ids][live], sq.z[f[:, None], ids][live]),
+          f"main-stream wave {label}: z differs from sequential absorbs")
+    check(torch.equal(sw.coef[f, s], sq.coef[f, s]),
+          f"main-stream wave {label}: coef differs from sequential absorbs")
+    err = max_err(pw.chol[f, s], pq.chol[f, s])
+    check(err <= 1e-5, f"main-stream wave {label}: chol {err:.3g} from sequential (tol 1e-5)")
+    return err
+
+
+def run_waves(torch) -> dict:
+    """Dense arrival waves at the streamed geometry with the beta mix: one
+    partial wave under drop, then WAVE_ROUNDS under evict; two of them held
+    to sequential absorbs, the factors to rebuild_chol, and the kernels to
+    their plain versions on the final state.  Returns the readings."""
+    from repro_torch.core import colored_sweep, init_state, streaming
+    from repro_torch.kernels import kernel_matvec as km
+    from repro_torch.launch import serve
+
+    _, args = stream_args()
+    prob = serve.build_problem(args)
+    b, n = args.fields, args.sensors
+    beta = torch.as_tensor([WAVE_BETAS[i % 2] for i in range(b)], dtype=prob.beta.dtype,
+                           device=prob.device)
+    prob = dataclasses.replace(prob, beta=beta)
+    state = colored_sweep(prob, init_state(prob), n_sweeps=args.sweeps, engine="cuda")
+    rng = np.random.default_rng(21)
+    pos = prob.topology.positions[:n].cpu().numpy()
+    partial = (np.add.outer(np.arange(b), np.arange(n)) % 3) != 0
+    rounds = [("drop", partial)] + [("evict", np.ones((b, n), bool))] * WAVE_ROUNDS
+    times = {"drop": [], "evict": []}
+    checked, evicted, chol_errs = 0, 0, []
+    for r, (policy, mask) in enumerate(rounds):
+        xs = torch.as_tensor(pos[None] + 0.05 * rng.normal(size=(b, n, pos.shape[1])),
+                             dtype=torch.float32, device=prob.device)
+        ys = torch.as_tensor(rng.normal(size=(b, n)), dtype=torch.float32, device=prob.device)
+        mask_t = torch.as_tensor(mask, device=prob.device)
+        pairs = None
+        if r in (0, len(rounds) - 1):  # the partial drop wave and the last evicting one
+            f, s = pairs = wave_pairs(torch, prob, mask, b)
+            pq, sq = prob, state
+            for i in range(WAVE_PAIRS):
+                pq, sq, _ = streaming.absorb(pq, sq, f[i], s[i], xs[f[i], s[i]], ys[f[i], s[i]],
+                                             donate=i > 0, on_full=policy)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        prob, state, rec = streaming.absorb_wave(prob, state, xs, ys, mask=mask_t, donate=True,
+                                                 on_full=policy)
+        end.record()
+        torch.cuda.synchronize()
+        times[policy].append(start.elapsed_time(end))
+        check(torch.equal(rec.absorbed, mask_t) or policy == "drop",
+              f"main-stream wave {r}: an evicting wave dropped an arrival")
+        evicted += int(rec.evicted.sum())
+        if pairs is not None:
+            label = f"{r} ({policy})"
+            chol_errs.append(compare_wave_rows(torch, prob, state, pq, sq, *pairs, label))
+            checked += WAVE_PAIRS
+            del pq, sq
+    check(evicted > 0, "main-stream waves: no eviction, the windows never wrapped")
+    err_rebuild = max_err(streaming.rebuild_chol(prob), prob.chol)
+    check(err_rebuild <= 5e-5, f"main-stream waves: chol vs rebuild_chol {err_rebuild:.3g} "
+          f"(tol 5e-5)")
+    print(f"main-stream waves: 1 partial wave under drop + {WAVE_ROUNDS} dense waves under "
+          f"evict ({b * n} arrivals each), beta {WAVE_BETAS[0]}/{WAVE_BETAS[1]} alternating: "
+          f"{evicted} evictions; {checked} (field, sensor) pairs bitwise equal to sequential "
+          f"absorbs (chol max |err| {max(chol_errs):.3g}); chol vs rebuild_chol "
+          f"{err_rebuild:.3g}; min anchor weight {float(prob.anchor_w.min()):.3g}")
+
+    # the ported kernels on the streamed state against their plain versions
+    st_c = colored_sweep(prob, state, n_sweeps=args.refresh_sweeps, engine="cuda")
+    st_p = colored_sweep(prob, state, n_sweeps=args.refresh_sweeps, engine="plan")
+    torch.cuda.synchronize()
+    err_z, err_c = max_err(st_c.z, st_p.z), max_err(st_c.coef, st_p.coef)
+    check(err_z <= STREAM_Z_TOL and err_c <= STREAM_COEF_TOL,
+          f"main-stream waves: color_sweep vs plan: |dz| {err_z:.3g}, |dcoef| {err_c:.3g}")
+    ins, alive, _ = knn_inputs(torch, prob, st_c, 4096, seed=13)
+    err_knn, picks = compare_knn(torch, ins, alive, prob.kernel.gamma, 3, "streamed waves")
+    xq = torch.as_tensor(np.stack([np.linspace(-1, 1, 4096), np.zeros(4096)], 1),
+                         dtype=torch.float32, device=prob.device)
+    xq32, anchors, coefs = conn_inputs(torch, prob, st_c, xq)
+    _, line = matvec_case(torch, xq32, anchors, coefs, prob.kernel.gamma,
+                          "streamed waves, conn route", held=None)
+    print(f"main-stream waves: {args.refresh_sweeps} color_sweep refresh sweeps vs plan: max "
+          f"|dz| {err_z:.3g}, |dcoef| {err_c:.3g}; knn_fuse: identical selections "
+          f"({picks} picks), max |err| {err_knn:.3g}; kernel_matvec {line}")
+    t_mv, by_mv, nonzero = matvec_floor(xq32, anchors, coefs)
+    g = prob.kernel.gamma
+    return dict(
+        wave_drop_ms=times["drop"], wave_evict_ms=times["evict"],
+        wave_evict_median_ms=float(np.median(times["evict"])),
+        wave_arrivals=b * n, evictions=evicted, pairs_checked=checked,
+        err_chol_rebuild=err_rebuild, err_chol_sequential=max(chol_errs),
+        rebuild_chol_ms=cuda_ms(lambda: streaming.rebuild_chol(prob), reps=5, warmup=1),
+        refresh_err_z=err_z, refresh_err_coef=err_c, knn_err=err_knn,
+        kernel_matvec_ms=graph_ms(lambda: km.kernel_matvec_batched(xq32, anchors, coefs,
+                                                                   gamma=g)),
+        kernel_matvec_nonzero_anchors=nonzero, kernel_matvec_bound_ms=t_mv,
+        kernel_matvec_bound_by=by_mv,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -1004,6 +1268,11 @@ def run() -> int:
     check(err_knn_e2e <= 2e-4, "main: kNN answers differ from the plain engines")
     check(err_conn_e2e <= 2e-5, "main: conn answers differ from the plain engines")
 
+    # 3b. the streaming path through the port's launcher, then dense waves ----
+    stream_launches, stream_readings = run_stream_launcher(torch, mods)
+    stream_readings["waves"] = run_waves(torch)
+    print("main-stream: " + json.dumps(stream_readings))
+
     # 4. the LM path through the port's launcher -----------------------------
     print("main-lm: python -m repro_torch.launch.serve " + " ".join(LM_ARGV))
     for mod in mods.values():
@@ -1029,8 +1298,8 @@ def run() -> int:
           f"prefill {lm['prefill_s']:.4f}s, decode {lm['tok_s']:.1f} tok/s, "
           f"launcher {time.perf_counter() - t0:.1f}s")
     lm_readings = compare_lm(torch, lm)
-    launches["ssd_intra"] = lm_launches["ssd_intra"]
-    launches["rbf_gram"] = 0  # no path reaches it: the kernels phase only
+    # each path's launches, counted from 0 around its run (rbf_gram: on none)
+    by_path = {"field": launches, "stream": stream_launches, "lm": lm_launches}
 
     # 5. report --------------------------------------------------------------
     meta = {
@@ -1048,8 +1317,10 @@ def run() -> int:
     rows = []
     for name, (source, replaces, err) in meta.items():
         t = timing[name]
+        counts = {path: got.get(name, 0) for path, got in by_path.items()}
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": launches[name], "max_abs_err": err, "ms": t["ms"],
+                     "launches": sum(counts.values()), "launches_by_path": counts,
+                     "max_abs_err": err, "ms": t["ms"],
                      "call_ms": t["call_ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

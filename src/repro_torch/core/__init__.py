@@ -1,6 +1,15 @@
-"""SN-Train (paper Sec. 3) in PyTorch: build, colored sweep, fusion, serving."""
+"""SN-Train (paper Sec. 3) in PyTorch: build, sweeps, streaming, fusion, serving."""
 
-from . import centralized, fusion, kernels_math, plans, serving, sn_train, topology
+from . import (
+    centralized,
+    fusion,
+    kernels_math,
+    plans,
+    serving,
+    sn_train,
+    streaming,
+    topology,
+)
 from .centralized import KRRModel, fit_krr, predict
 from .kernels_math import Kernel
 from .plans import LifecycleLayout
@@ -11,12 +20,15 @@ from .sn_train import (
     colored_sweep,
     default_lambdas,
     effective_coef,
+    field_view,
     init_state,
     local_only,
     make_batch_problem,
     make_problem,
+    serial_sweep,
     weighted_norm_sq,
 )
+from .streaming import AbsorbReceipt, absorb_wave
 from .topology import (
     SensorTopology,
     build_topology,

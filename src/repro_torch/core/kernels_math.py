@@ -3,7 +3,7 @@
 Port of ``repro.core.kernels_math``: linear (Case 1), Gaussian/RBF
 (Case 2), Matern-3/2 and polynomial kernels.  Point sets are ``(..., n, d)``
 tensors; leading dimensions batch, so one call builds every sensor's local
-Gram block.
+Gram block.  ``Kernel.pairs`` evaluates paired points elementwise instead.
 """
 
 from __future__ import annotations
@@ -73,6 +73,35 @@ class Kernel:
         if self.name == "poly":
             return poly_kernel(x1, x2, degree=self.degree, bias=self.bias)
         raise KeyError(self.name)
+
+    def pairs(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        """K(x1[..., :], x2[..., :]) for paired (broadcast) points: (..., d) -> (...).
+
+        The matrix form's formulas, but every product and sum is elementwise
+        (no matmul, no reduction kernel), so an entry's bits do not depend on
+        the batch shape it is computed in: streaming's wave and its
+        one-arrival absorb write the same Gram entries.
+        """
+        cross = _dot(x1, x2)
+        if self.name == "linear":
+            return cross + self.bias
+        if self.name == "poly":
+            return (cross + self.bias) ** self.degree
+        d2 = torch.clamp(_dot(x1, x1) + _dot(x2, x2) - 2.0 * cross, min=0.0)
+        if self.name == "rbf":
+            return torch.exp(-self.gamma * d2)
+        if self.name == "matern32":
+            s = math.sqrt(3.0) * torch.sqrt(d2 + 1e-12) / self.length
+            return (1.0 + s) * torch.exp(-s)
+        raise KeyError(self.name)
+
+
+def _dot(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """Paired dot products over the last axis, summed in coordinate order."""
+    out = x1[..., 0] * x2[..., 0]
+    for i in range(1, x1.shape[-1]):
+        out = out + x1[..., i] * x2[..., i]
+    return out
 
 
 def gram_matrix(kernel: Kernel, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:

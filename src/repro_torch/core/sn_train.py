@@ -1,6 +1,7 @@
 """SN-Train: distributed kernel regression by alternating projections.
 
-Port of ``repro.core.sn_train`` (the build and the colored engine).  Each
+Port of ``repro.core.sn_train`` (the build, the serial and colored
+engines, ``field_view``).  Each
 sensor ``s`` keeps a local function ``f_s = sum_{j in N_s} c_{s,j} K(., x_j)``
 and the network shares a message vector ``z``.  One projection at s
 (paper Table 1 / Eq. 18):
@@ -25,7 +26,10 @@ Engines of ``colored_sweep``:
                 ``"pallas"``.  On CPU tensors it runs the kernel's plain
                 PyTorch version.
 
-The local solves are forward and back substitution over the cached
+``serial_sweep`` is the paper's Table-1 ordering, one sensor at a time
+(plain PyTorch, every field of a batch at once).
+
+The colored engine's local solves are forward and back substitution over the cached
 Cholesky factors, vectorized over all B*M lanes, and not LAPACK's
 ``cholesky_solve``: the reference measured the substitution as more
 accurate in f32 at the paper's ill-conditioned lambdas.
@@ -91,13 +95,28 @@ class SNTrainProblem:
         return int(self.y.shape[0]) if self.batched else None
 
     @property
+    def sentinel(self) -> int:
+        """Index of the write-sentinel slot of z (== n + n_stream)."""
+        return self.n + self.n_stream
+
+    @property
     def n_z(self) -> int:
         return self.n + self.n_stream + 1
+
+    @property
+    def n_base(self) -> int:
+        """Build-time sensor count; rows [n_base, n) are join capacity."""
+        return self.layout.n_base
 
     @property
     def alive_z(self) -> torch.Tensor:
         """(n_z,) message-slot liveness (a slot lives with its owning row)."""
         return plans.alive_slots(self.alive, self.layout.slot_owner)
+
+    @property
+    def recolor_start(self) -> int:
+        """First reserved recolor class (the pool symmetric joins use)."""
+        return int(self.color_members.shape[0]) - self.topology.n_recolor
 
     @property
     def device(self) -> torch.device:
@@ -266,6 +285,26 @@ def make_batch_problem(
     )
 
 
+def field_view(
+    problem: SNTrainProblem, state: SNTrainState, b: int
+) -> tuple[SNTrainProblem, SNTrainState]:
+    """Single-field view of field ``b`` of a batched problem/state."""
+    if not problem.batched:
+        raise ValueError("field_view expects a batched problem")
+    prob = dataclasses.replace(
+        problem,
+        y=problem.y[b],
+        nbr_pos=problem.nbr_pos[b],
+        nbr_mask=problem.nbr_mask[b],
+        gram=problem.gram[b],
+        chol=problem.chol[b],
+        stream_pos=problem.stream_pos[b],
+        beta=problem.beta[b],
+        anchor_w=problem.anchor_w[b],
+    )
+    return prob, SNTrainState(z=state.z[b], coef=state.coef[b])
+
+
 def weighted_norm_sq(problem: SNTrainProblem, state: SNTrainState) -> torch.Tensor:
     """The SOP product-space norm ||z||^2 + sum_i lambda_i c_i^T K_i c_i.
 
@@ -293,6 +332,82 @@ def init_state(problem: SNTrainProblem) -> SNTrainState:
 def effective_coef(problem: SNTrainProblem, state: SNTrainState) -> torch.Tensor:
     """TRUE representer coefficients a = anchor_w * coef (identity at beta=1)."""
     return state.coef * problem.anchor_w.to(state.coef.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Serial engine: the paper's Table-1 ordering, one sensor at a time, every
+# field of a batch at once.
+# ---------------------------------------------------------------------------
+
+
+def _sensor_update(z, coef_s, nbr_idx_s, nbr_mask_s, gram_s, chol_s, lam_s):
+    """One P_{C_s} projection (Eq. 18) for B fields: z (B, n_z), coef_s (B, D),
+    nbr_mask_s (B, D), gram_s/chol_s (B, D, D).  Returns (coef_s', z at N_s)."""
+    z_nbr = z[:, nbr_idx_s]  # (B, D)
+    rhs = torch.where(nbr_mask_s, z_nbr + lam_s * coef_s, 0.0)
+    coef_new = torch.cholesky_solve(rhs[..., None], chol_s, upper=False)[..., 0]
+    z_new = (gram_s @ coef_new[..., None])[..., 0]  # f_s(x_j) for j in N_s
+    return coef_new, z_new
+
+
+def _serial_core(
+    nbr_idx, nbr_mask, gram, chol, lam_pad, sentinel, z, coef, n_sweeps,
+    alive_row, alive_slot, delivered=None,
+):
+    """Sweeps of sensors 0..n-1 in order over explicit leading field axes.
+
+    A dead sensor neither updates nor is heard from; an undelivered lane's
+    message write never lands (its slot keeps its last value), while the
+    local coefficient update still runs.
+    """
+    z, coef = z.clone(), coef.clone()
+    n = nbr_idx.shape[0] - 1
+    for t in range(n_sweeps):
+        for s in range(n):
+            idx = nbr_idx[s].long()
+            mask_s = nbr_mask[:, s] & alive_slot[idx] & alive_row[s]  # (B, D)
+            coef_new, z_new = _sensor_update(
+                z, coef[:, s], idx, mask_s, gram[:, s], chol[:, s], lam_pad[s]
+            )
+            coef[:, s] = torch.where(alive_row[s], coef_new, coef[:, s])
+            send = mask_s if delivered is None else mask_s & delivered[t, s]
+            # unsent lanes write the sentinel's own value back to it
+            target = torch.where(send, idx, sentinel)
+            value = torch.where(send, z_new, z[:, sentinel : sentinel + 1])
+            z.scatter_(1, target, value)
+    return z, coef
+
+
+def serial_sweep(
+    problem: SNTrainProblem,
+    state: SNTrainState,
+    n_sweeps: int = 1,
+    *,
+    delivered: torch.Tensor | None = None,
+) -> SNTrainState:
+    """The paper's Table-1 serial ordering: for t: for s: project.
+
+    Batched problems run every field's serial sweep at once.  delivered:
+    optional (n_sweeps, n+1, D) bool per-sweep link-delivery mask shared
+    across fields; a dropped lane's message write never lands.  All-True is
+    bitwise the fault-free sweep.  Plain PyTorch: n_sweeps x n dependent
+    steps, the reference ordering the other engines are checked against.
+    """
+    if delivered is not None and delivered.shape[0] != n_sweeps:
+        raise ValueError(
+            f"delivered has {delivered.shape[0]} sweeps, expected {n_sweeps}"
+        )
+    args = (problem.nbr_mask, problem.gram, problem.chol, state.z, state.coef)
+    if not problem.batched:
+        args = tuple(a[None] for a in args)
+    nbr_mask, gram, chol, z, coef = args
+    z, coef = _serial_core(
+        problem.nbr_idx, nbr_mask, gram, chol, problem.lam_pad, problem.sentinel,
+        z, coef, n_sweeps, problem.alive, problem.alive_z, delivered,
+    )
+    if not problem.batched:
+        z, coef = z[0], coef[0]
+    return SNTrainState(z=z, coef=coef)
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,12 @@ For each request it prints the wall time, the device time summed over every
 kernel, the device's idle share (1 - device / wall; the profiler's own host
 cost inflates it) and the kernels that took the most device time, then one
 JSON line with the same numbers.  Extra arguments are the launcher's field
-flags and override the geometry (e.g. ``--engine plan``).
+flags and override the geometry (e.g. ``--engine plan``); with ``--stream
+A`` the requests are profiled on the streamed and refreshed fields, as the
+launcher serves them.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_field
+  PYTHONPATH=src python -m repro_torch.launch.profile_field --stream 2048 --on_full evict
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 import json
 import sys
 
+import numpy as np
 import torch
 
 from .. import device as _device
@@ -35,12 +39,16 @@ def main(argv: list[str] | None = None) -> dict:
     extra = sys.argv[1:] if argv is None else argv
     args = serve.parser().parse_args(FIELD_ARGV + list(extra))
     dev = _device.resolve(args.device)
-    prob = serve.build_problem(args)
+    rng = np.random.default_rng(args.seed)
+    prob = serve.build_problem(args, rng=rng)
     engine = "cuda" if args.engine == "cuda" else "plan"
     state = colored_sweep(prob, init_state(prob), n_sweeps=args.sweeps, engine=engine)
+    if args.stream:
+        prob, state, _ = serve.stream_fields(args, prob, state, rng, engine)
     xq = serve.query_grid(args, dev)
     out = {"device": torch.cuda.get_device_name(dev), "engine": args.engine,
-           "fields": args.fields, "sensors": args.sensors, "queries": args.queries}
+           "fields": args.fields, "sensors": args.sensors, "queries": args.queries,
+           "stream": args.stream, "on_full": args.on_full}
     for rule, note, run in serve.field_requests(args, prob, state, xq):
         run()  # warm-up
         w = out[rule] = _window(run, dev)

@@ -21,13 +21,24 @@ decoded greedily against the SSM cache.  ``--engine cuda`` runs the prefill's
 SSD intra-chunk term in the ssd_intra kernel (``ssd_fused=True``);
 ``plan`` runs the plain ``ssd_chunked``.
 
-Streaming, churn, faults, pruning and the daemon of the reference launcher
-are not ported yet and refuse to run.
+``--stream A`` absorbs A arrivals after training, as the reference does:
+the topology gets ``ceil(A / n) + 4`` lanes of headroom, the arrivals are
+drawn from the generator that drew the fields (an odd remainder of one,
+then a warm window and a timed window of A // 2 through
+``streaming.absorb_many`` under ``--on_full``), ``--refresh_sweeps``
+colored sweeps with the train engine follow, and the queries run on the
+streamed problem.
+
+Churn, faults, pruning and the daemon of the reference launcher are not
+ported yet and refuse to run.
 
 Examples (on the GPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --mode field \\
     --fields 16 --sensors 1000 --dim 2 --radius 0.0949 --sweeps 30 \\
     --queries 4096 --fusion knn conn --k 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode field \\
+    --fields 16 --sensors 1000 --dim 2 --radius 0.0949 --sweeps 30 \\
+    --queries 4096 --fusion knn conn --k 3 --stream 2048 --on_full evict
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
     --arch mamba2-370m --variant full --batch 4 --prompt_len 512 --gen 32
 """
@@ -52,6 +63,7 @@ from ..core import (
     init_state,
     make_batch_problem,
     make_serving_plan,
+    streaming,
     uniform_sensors,
 )
 from ..kernels.ops import kernel_matvec
@@ -76,17 +88,31 @@ def _timed(fn, dev: torch.device):
     return out, time.perf_counter() - t0
 
 
-def build_problem(args: argparse.Namespace, dtype: torch.dtype = torch.float32):
-    """The launcher's seeded batch problem (B sinusoid fields + noise) on ``args.device``."""
+def build_problem(
+    args: argparse.Namespace, dtype: torch.dtype = torch.float32, rng=None
+):
+    """The launcher's seeded batch problem (B sinusoid fields + noise) on ``args.device``.
+
+    The fields are drawn from ``rng`` (default: a fresh
+    ``np.random.default_rng(args.seed)``); pass one to go on drawing from it
+    afterwards, as the launcher draws its arrival windows.  With
+    ``args.stream`` the neighborhoods get ``ceil(stream / n) + 4`` lanes of
+    headroom beyond the max degree, the reference's streaming capacity.
+    """
     dev = _device.resolve(args.device)
     b, n = args.fields, args.sensors
-    rng = np.random.default_rng(args.seed)
+    if rng is None:
+        rng = np.random.default_rng(args.seed)
     pos = uniform_sensors(n, d=args.dim, seed=args.seed)
     # Per-field targets: random-frequency/phase sinusoids + noise.
     freq = rng.uniform(0.5, 2.0, size=(b, 1))
     phase = rng.uniform(0, 2 * np.pi, size=(b, 1))
     ys = np.sin(np.pi * freq * pos[None, :, 0] + phase) + 0.3 * rng.normal(size=(b, n))
     topo = build_topology(pos, args.radius, device=dev)
+    if args.stream:
+        per_sensor = -(-max(args.stream, 1) // n) + 4
+        d_max = int(topo.degrees.max()) + per_sensor
+        topo = build_topology(pos, args.radius, d_max=d_max, device=dev)
     return make_batch_problem(
         topo, Kernel("rbf", gamma=args.gamma), ys, np.full((n,), args.lam, np.float32),
         beta=args.beta, dtype=dtype, device=dev,
@@ -98,14 +124,18 @@ def serve_fields(args: argparse.Namespace) -> dict:
 
     Returns ``problem``, the trained ``state``, the query grid ``xq``, the
     (B, Q) answers under each ``--fusion`` rule, the timings and
-    ``train_calls`` (``colored_sweep`` calls, the warm-up included).
+    ``train_calls`` (``colored_sweep`` calls, the warm-up included).  With
+    ``--stream``, ``problem`` and ``state`` are the streamed and refreshed
+    ones the queries ran on, and ``stream`` holds what ``stream_fields``
+    returns.
     """
-    for flag in ("stream", "churn", "faults", "energy_tau"):
+    for flag in ("churn", "faults", "energy_tau"):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag} is not ported yet")
     dev = _device.resolve(args.device)
     b, n = args.fields, args.sensors
-    prob = build_problem(args)
+    rng = np.random.default_rng(args.seed)
+    prob = build_problem(args, rng=rng)
     state0 = init_state(prob)
     print(
         f"fields={b} sensors={n} D={prob.topology.d_max} "
@@ -121,8 +151,11 @@ def serve_fields(args: argparse.Namespace) -> dict:
         f"{train_s:.4f}s -> {b / train_s:.1f} fields/s"
     )
 
+    res = dict(train_s=train_s, train_calls=TIMED_CALLS)
+    if args.stream:
+        prob, state, res["stream"] = stream_fields(args, prob, state, rng, train_engine)
     xq = query_grid(args, dev)
-    res = dict(problem=prob, state=state, xq=xq, train_s=train_s, train_calls=TIMED_CALLS)
+    res.update(problem=prob, state=state, xq=xq)
     for rule, note, run in field_requests(args, prob, state, xq):
         out, dt = _timed(run, dev)
         print(
@@ -133,6 +166,76 @@ def serve_fields(args: argparse.Namespace) -> dict:
         res[rule] = out
         res[f"{rule}_s"] = dt
     return res
+
+
+def stream_fields(args: argparse.Namespace, prob, state, rng, engine: str):
+    """Absorb ``args.stream`` arrivals into the trained fields, then refresh.
+
+    The reference launcher's order: an odd remainder of one arrival, then a
+    warm window and a timed window of ``stream // 2`` arrivals (the timed
+    one drawn before the clock starts), each one ``absorb_many`` call under
+    ``--on_full`` with ``donate=True``; arrivals are drawn from ``rng``
+    (field, sensor, the sensor's position + N(0, 0.05^2), value N(0, 1)).
+    Then ``--refresh_sweeps`` colored sweeps with ``engine``.  Returns
+    ``(problem, state, info)``: ``info`` has the ``receipt`` of every
+    arrival, the ``absorbed``/``evicted``/``dropped`` counts, the timed
+    ``window`` and its ``window_s``, and ``refresh_s``.
+    """
+    dev = prob.device
+    b, n = args.fields, args.sensors
+    pos = prob.topology.positions[:n].cpu().numpy()
+    half = args.stream // 2
+
+    def window(a):
+        fs = rng.integers(0, b, size=a)
+        ss = rng.integers(0, n, size=a)
+        xs = (pos[ss] + 0.05 * rng.normal(size=(a, pos.shape[1]))).astype(np.float32)
+        return fs, ss, xs, rng.normal(size=a).astype(np.float32)
+
+    receipts = []
+
+    def absorb(arrivals):
+        nonlocal prob, state
+        prob, state, rec = streaming.absorb_many(
+            prob, state, *arrivals, donate=True, on_full=args.on_full
+        )
+        receipts.append(rec)
+
+    if args.stream % 2:
+        absorb(window(1))
+    window_s = None
+    if half:
+        absorb(window(half))
+        timed = window(half)
+        _sync(dev)
+        t0 = time.perf_counter()
+        absorb(timed)
+        _sync(dev)
+        window_s = time.perf_counter() - t0
+    receipt = streaming.AbsorbReceipt(
+        absorbed=torch.cat([r.absorbed for r in receipts]),
+        evicted=torch.cat([r.evicted for r in receipts]),
+    )
+    # every arrival is absorbed, absorbed after an eviction, or dropped
+    absorbed = int(receipt.absorbed.sum())
+    evicted = int(receipt.evicted.sum())
+    dropped = args.stream - absorbed
+    pressure = (f" (capacity pressure: {dropped} dropped, {evicted} evicted)"
+                if dropped or evicted else "")
+    timing = (f", timed window of {half} in one absorb_many call: {window_s:.4f}s -> "
+              f"{window_s / half * 1e3:.3f} ms/update" if window_s is not None else "")
+    print(f"stream: {absorbed} absorbed{timing}{pressure}")
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    state = colored_sweep(prob, state, n_sweeps=args.refresh_sweeps, engine=engine)
+    _sync(dev)
+    refresh_s = time.perf_counter() - t0
+    print(f"refresh[engine={engine}]: {args.refresh_sweeps} sweeps x {b} fields in "
+          f"{refresh_s:.4f}s")
+    info = dict(receipt=receipt, absorbed=absorbed, evicted=evicted, dropped=dropped,
+                window=half, window_s=window_s, refresh_s=refresh_s)
+    return prob, state, info
 
 
 def query_grid(args: argparse.Namespace, dev: torch.device) -> torch.Tensor:
@@ -242,8 +345,14 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--gamma", type=float, default=1.0)
     ap.add_argument("--lam", type=float, default=0.1)
     ap.add_argument("--beta", type=float, default=1.0,
-                    help="per-field forgetting factor in (0, 1]")
+                    help="per-field forgetting factor in (0, 1]; beta < 1 decays old "
+                         "arrivals one step per absorb, 1.0 is the static path")
     ap.add_argument("--sweeps", type=int, default=30)
+    ap.add_argument("--refresh_sweeps", type=int, default=5,
+                    help="colored sweeps after --stream's arrivals")
+    ap.add_argument("--stream", type=int, default=0, help="streaming arrivals to absorb")
+    ap.add_argument("--on_full", default="drop", choices=["drop", "evict"],
+                    help="over-capacity arrival policy (evict = sliding window)")
     ap.add_argument("--queries", type=int, default=256)
     ap.add_argument("--fusion", nargs="+", default=["conn"], choices=["conn", "knn"],
                     help="query fusion rules to serve, in order")
@@ -255,7 +364,6 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--serve_dtype", default="f32", choices=["f32", "bf16"],
                     help="anchor-table storage dtype for the plan/cuda kNN engines")
     # reference flags whose features are not ported yet: refused when set
-    ap.add_argument("--stream", type=int, default=0, help="not ported yet")
     ap.add_argument("--churn", type=int, default=0, help="not ported yet")
     ap.add_argument("--faults", default="", help="not ported yet")
     ap.add_argument("--energy_tau", type=float, default=0.0, help="not ported yet")

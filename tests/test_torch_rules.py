@@ -55,6 +55,7 @@ ENTRY_POINTS = {
     "state_from_numpy": lambda: convert.state_from_numpy(
         {"z": np.zeros(3), "coef": np.zeros((2, 2))}),
     "serve.main": lambda: serve.main(["--fields", "2", "--sensors", "8"]),
+    "serve.main stream": lambda: serve.main(["--fields", "2", "--sensors", "8", "--stream", "4"]),
     "models.init_params": lambda: models.init_params(get_config("mamba2-370m", variant="smoke")),
     "serve.main lm": lambda: serve.main(["--mode", "lm", "--variant", "smoke", "--batch", "1",
                                          "--prompt_len", "4", "--gen", "1"]),
@@ -124,7 +125,7 @@ def test_missing_nvcc_raises_and_names_it(monkeypatch, tmp_path):
         _build.build_all()
 
 
-@pytest.mark.parametrize("flag", [["--stream", "4"], ["--churn", "2"],
+@pytest.mark.parametrize("flag", [["--churn", "2"],
                                   ["--faults", "drop=0.1"], ["--energy_tau", "0.1"],
                                   ["--mode", "daemon"]])
 def test_unported_launcher_features_refuse(flag):

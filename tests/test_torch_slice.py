@@ -1,4 +1,6 @@
-"""The first slice end to end: build -> colored sweep -> kNN and conn serving.
+"""The first slice end to end: build -> colored sweep -> kNN and conn serving,
+then the same geometry with ``--stream`` (tests/test_torch_stream_launch.py
+holds the streaming comparison and its bounds).
 
 The port's entry point (``repro_torch.launch.serve``) against the JAX
 package's same pipeline (its ``serve_fields`` field mode: colored sweep
@@ -14,6 +16,7 @@ import repro.core as jr
 from repro.kernels import kernel_matvec as j_kernel_matvec
 from repro_torch.launch import serve
 from test_torch_build import _np
+from test_torch_stream_launch import check_stream_launcher
 
 torch.set_num_threads(1)
 
@@ -57,3 +60,9 @@ def test_slice_port_launcher_matches_jax_pipeline(capsys):
     assert res["knn"].shape == res["conn"].shape == (B, Q)
     np.testing.assert_allclose(_np(res["knn"]), np.asarray(jknn), atol=1e-5)
     np.testing.assert_allclose(_np(res["conn"]), np.asarray(jconn), atol=2e-5, rtol=2e-5)
+
+
+def test_slice_with_stream_matches_reference_pipeline(capsys):
+    """The same 60 sensors with 61 streamed arrivals (the one-arrival
+    remainder, then two windows) under --on_full evict, on the plain engines."""
+    check_stream_launcher("n60", "evict", capsys)

@@ -7,7 +7,8 @@ coef[:, -1]: the Pallas kernel redirects gated lanes' writes there, while
 the port's kernel never stores a gated lane (its sentinel stays 0, as the
 plan engine's).  Inside the port the reference's bitwise identities hold
 bitwise: plan == onehot, all-True delivery is an identity, and the CUDA
-engine's plain version equals the plan engine on every slot.
+engine's plain version equals the plan engine on every slot.  The serial
+sweep (the paper's Table-1 order) and ``field_view`` close the file.
 """
 
 import dataclasses
@@ -19,7 +20,8 @@ import torch
 
 import repro.core as jr
 import repro_torch.core as tr
-from test_torch_build import _np, _pair
+from repro_torch import convert
+from test_torch_build import _leaves, _np, _pair
 
 torch.set_num_threads(1)
 
@@ -137,3 +139,39 @@ def test_centralized_krr_matches_jax():
         out = tr.predict(tm, xq, use_kernel=use_kernel)
         assert out.shape == (23,) and out.dtype == torch.float32
         np.testing.assert_allclose(_np(out), ref, atol=2e-5)
+
+
+def test_serial_sweep_and_field_view_match_reference():
+    """The batched serial sweep with a dead row and dropped deliveries, and one
+    field's view of it, against the reference's (z 1e-5, coef 1e-3)."""
+    jprob, _ = _pair(n=30, b=2, d=2, radius=0.6, seed=4)
+    alive = np.asarray(jprob.alive).copy()
+    alive[5] = False
+    jprob = dataclasses.replace(jprob, alive=jnp.asarray(alive))
+    tprob = convert.problem_from_numpy(_leaves(jprob), kernel=tr.Kernel("rbf", gamma=1.0),
+                                       device="cpu")
+    deliv = np.random.default_rng(3).uniform(size=(3,) + tuple(jprob.nbr_idx.shape)) >= 0.3
+    jst = jr.serial_sweep(jprob, jr.init_state(jprob), n_sweeps=3, delivered=jnp.asarray(deliv))
+    tst = tr.serial_sweep(tprob, tr.init_state(tprob), n_sweeps=3,
+                          delivered=torch.as_tensor(deliv))
+    np.testing.assert_allclose(_np(tst.z)[:, :-1], np.asarray(jst.z)[:, :-1], atol=1e-5)
+    np.testing.assert_allclose(_np(tst.coef), np.asarray(jst.coef), atol=1e-3)
+    assert float(tst.z[:, :-1].abs().max()) > 0
+    # all-True delivery is bitwise the fault-free sweep
+    st0 = tr.init_state(tprob)
+    plain = tr.serial_sweep(tprob, st0, n_sweeps=2)
+    assert torch.equal(plain.z, tr.serial_sweep(
+        tprob, st0, n_sweeps=2, delivered=torch.ones((2,) + tuple(tprob.nbr_idx.shape),
+                                                     dtype=torch.bool)).z)
+    # one field's view runs the single-field path to the same bits
+    for b in range(2):
+        jp1, js1 = jr.field_view(jprob, jst, b)
+        tp1, ts1 = tr.field_view(tprob, tst, b)
+        assert not tp1.batched and tp1.beta.shape == ()
+        for name in ("y", "nbr_pos", "nbr_mask", "gram", "chol", "stream_pos", "anchor_w"):
+            np.testing.assert_array_equal(_np(getattr(tp1, name)), np.asarray(getattr(jp1, name)))
+        one = tr.serial_sweep(tp1, ts1, n_sweeps=1)
+        both = tr.serial_sweep(tprob, tst, n_sweeps=1)
+        assert torch.equal(one.z, both.z[b]) and torch.equal(one.coef, both.coef[b])
+    assert (tprob.sentinel, tprob.n_base, tprob.recolor_start) == (
+        jprob.sentinel, jprob.n_base, jprob.recolor_start)
