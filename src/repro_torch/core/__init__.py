@@ -13,7 +13,12 @@ from . import (
 from .centralized import KRRModel, fit_krr, predict
 from .kernels_math import Kernel
 from .plans import LifecycleLayout
-from .serving import ServingPlan, make_serving_plan
+from .serving import (
+    ServingPlan,
+    make_serving_plan,
+    plan_add_sensor,
+    plan_remove_sensor,
+)
 from .sn_train import (
     SNTrainProblem,
     SNTrainState,
@@ -25,10 +30,17 @@ from .sn_train import (
     local_only,
     make_batch_problem,
     make_problem,
+    robust_sweep,
     serial_sweep,
     weighted_norm_sq,
 )
-from .streaming import AbsorbReceipt, absorb_wave
+from .streaming import (
+    AbsorbReceipt,
+    JoinReceipt,
+    absorb_wave,
+    add_sensor,
+    remove_sensor,
+)
 from .topology import (
     SensorTopology,
     build_topology,

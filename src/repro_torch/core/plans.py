@@ -1,8 +1,9 @@
 """Network plan layer: the host-side builders and the slot-liveness helper.
 
-Port of the numpy builders of ``repro.core.plans`` (build time, identical
-integer tables) and of ``alive_slots``.  The device-side lifecycle
-repairs of the reference (join/leave) belong to a later slice.
+Port of ``repro.core.plans``: the numpy builders (build time, identical
+integer tables), ``alive_slots`` and the device-side repairs that the
+join/leave events (``streaming.add_sensor``/``remove_sensor``) and the
+serving-plan repairs run.
 
   ``padded_neighborhoods``  adjacency -> fixed-shape (n, D) neighbor table;
   ``color_classes``         distance-2 greedy coloring plus the spare-color
@@ -10,7 +11,11 @@ repairs of the reference (join/leave) belong to a later slice.
   ``assign_stream_slots``   the reserved message-slot layout;
   ``slot_owner_map``        message slot -> owning sensor row;
   ``build_color_plans``     the per-color scatter plans;
-  ``build_cell_lists``      the serving grid's per-cell candidate lists.
+  ``build_cell_lists``      the serving grid's per-cell candidate lists;
+  ``plan_rows_remove``/``plan_rows_add``, ``color_plans_remove``/``_add``,
+  ``members_clear``/``members_set``, ``resolve_join_conflicts``,
+  ``cells_remove``/``cells_add``, ``degree_headroom``: the fixed-shape
+                            repairs of the device tables.
 """
 
 from __future__ import annotations
@@ -284,3 +289,173 @@ def build_cell_lists(
 def alive_slots(alive: torch.Tensor, slot_owner: torch.Tensor) -> torch.Tensor:
     """(n_z,) message-slot liveness from (n+1,) row liveness."""
     return alive[slot_owner]
+
+
+# ---------------------------------------------------------------------------
+# Device-side repairs (fixed shapes; each event touches O(degree) rows, their
+# color classes and O(1) grid cells).  The scatter-plan repairs write the
+# given tables IN PLACE and return them.  Every gather precedes the writes,
+# and a gated-off entry writes back the value it read, so it is a no-op.  The
+# reference pads row lists with the sentinel row n, whose color is the
+# out-of-range ``n_colors``; JAX clamps that read and drops that write.  Here
+# the color is clamped for both, and the sentinel row's lanes all hold the
+# sentinel slot, whose plan codes never change, so the write is the same
+# no-op without an out-of-range index.
+# ---------------------------------------------------------------------------
+
+
+def _clamped(colors: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(colors.long(), max=table.shape[0] - 1)
+
+
+def plan_rows_remove(plan_z, plan_coef, colors_r, slots_r, idx_rows, gate_r):
+    """Revert R rows' scatter codes to "keep" in their colors' plans.
+
+    ``colors_r``/``slots_r`` (R,), ``idx_rows`` (R, D) the rows' CURRENT
+    slot tables, ``gate_r`` (R,) bool.  Scatter-collision contract (the
+    reference's): any two gated rows occupy distinct colors or have
+    disjoint slot tables; a removal's affected rows have distinct colors,
+    a join's adopters (pre-join colors and tables) disjoint tables.
+    """
+    c = _clamped(colors_r, plan_z)[:, None].expand(idx_rows.shape)
+    idx = idx_rows.long()
+    cur = plan_z[c, idx]
+    plan_z[c, idx] = torch.where(gate_r[:, None], idx.to(plan_z.dtype), cur)
+    cc, sl = _clamped(colors_r, plan_coef), slots_r.long()
+    curc = plan_coef[cc, sl]
+    plan_coef[cc, sl] = torch.where(gate_r, sl.to(plan_coef.dtype), curc)
+    return plan_z, plan_coef
+
+
+def plan_rows_add(plan_z, plan_coef, colors_r, m_pos_r, slots_r, idx_rows, gate_r):
+    """Install R rows' scatter codes (the inverse of ``plan_rows_remove``).
+
+    Codes follow ``build_color_plans``: slot ``idx_rows[r, k]`` takes
+    ``n_z + m*D + k`` with ``m = m_pos_r[r]``, and the coefficient row
+    ``(n+1) + m``.  Lanes retired to the sentinel slot stay at "keep".
+    Same collision contract as ``plan_rows_remove``.
+    """
+    n_z = plan_z.shape[1]
+    d = idx_rows.shape[1]
+    idx = idx_rows.long()
+    ar = torch.arange(d, device=idx.device)
+    codes = n_z + m_pos_r.long()[:, None] * d + ar[None, :]
+    codes = torch.where(idx == n_z - 1, idx, codes)  # the sentinel slot keeps
+    c = _clamped(colors_r, plan_z)[:, None].expand(idx.shape)
+    cur = plan_z[c, idx]
+    plan_z[c, idx] = torch.where(gate_r[:, None], codes.to(plan_z.dtype), cur)
+    n_rows = plan_coef.shape[1]
+    cc, sl = _clamped(colors_r, plan_coef), slots_r.long()
+    curc = plan_coef[cc, sl]
+    plan_coef[cc, sl] = torch.where(gate_r, (n_rows + m_pos_r.long()).to(plan_coef.dtype), curc)
+    return plan_z, plan_coef
+
+
+def color_plans_remove(plan_z, plan_coef, color_of, slot, idx_row, gate):
+    """One-row ``plan_rows_remove``; ``slot`` and ``gate`` are (1,) tensors."""
+    return plan_rows_remove(plan_z, plan_coef, color_of[slot], slot, idx_row[None], gate)
+
+
+def color_plans_add(plan_z, plan_coef, color_of, member_pos, slot, idx_row, gate):
+    """One-row ``plan_rows_add``; ``slot`` and ``gate`` are (1,) tensors."""
+    return plan_rows_add(
+        plan_z, plan_coef, color_of[slot], member_pos[slot], slot, idx_row[None], gate
+    )
+
+
+def _member_hits(shape, colors_r, m_pos_r, gate_r) -> torch.Tensor:
+    """(n_colors, M, R) bool: entry (c, m) addressed by gated row r."""
+    dev = colors_r.device
+    c_ax = torch.arange(shape[0], device=dev)[:, None, None]
+    m_ax = torch.arange(shape[1], device=dev)[None, :, None]
+    return (
+        (c_ax == colors_r.long()[None, None, :])
+        & (m_ax == m_pos_r.long()[None, None, :])
+        & gate_r[None, None, :]
+    )
+
+
+def members_clear(color_members, color_mask, colors_r, m_pos_r, gate_r, sentinel: int):
+    """Clear R member-table entries ((colors_r[r], m_pos_r[r]) each), in place.
+
+    A full-table masked update (an out-of-range color addresses nothing),
+    O(n_colors * M * R) compares.
+    """
+    hit = _member_hits(color_members.shape, colors_r, m_pos_r, gate_r).any(-1)
+    color_members.masked_fill_(hit, sentinel)
+    color_mask &= ~hit
+    return color_members, color_mask
+
+
+def members_set(color_members, color_mask, colors_r, m_pos_r, slots_r, gate_r):
+    """Install R member-table entries in place: (colors_r[r], m_pos_r[r])
+    takes row ``slots_r[r]``.  Gated targets must be distinct and empty (the
+    recolor pool and singleton-class contract)."""
+    hit = _member_hits(color_members.shape, colors_r, m_pos_r, gate_r)
+    val = torch.sum(hit * slots_r.long()[None, None, :], dim=-1)
+    any_hit = hit.any(-1)
+    color_members.copy_(torch.where(any_hit, val.to(color_members.dtype), color_members))
+    color_mask |= any_hit
+    return color_members, color_mask
+
+
+def resolve_join_conflicts(color_of, color_mask, adopters, valid, recolor_start: int):
+    """Conflict-aware recoloring of a symmetric join's adopters.
+
+    Every adopter's neighborhood gains the newcomer's slot, so two
+    same-color adopters would violate the distance-2 rule.  The FIRST
+    adopter of each color stays; the rest move into empty reserved recolor
+    classes (``recolor_start`` onward), in order.  Returns ``(new_colors
+    (A,), moved (A,) bool, feasible () bool)``; ``feasible`` is False when
+    the pool has fewer empty classes than conflicts (the caller drops the
+    join).
+    """
+    a = adopters.shape[0]
+    c = color_of[adopters.long()]
+    same = (c[:, None] == c[None, :]) & valid[:, None] & valid[None, :]
+    earlier = torch.tril(torch.ones((a, a), dtype=torch.bool, device=c.device), diagonal=-1)
+    moved = (same & earlier).any(dim=1)
+    free = ~color_mask[recolor_start:].any(dim=1)
+    rank = torch.cumsum(moved.long(), 0)  # 1-based rank among the moves
+    csum = torch.cumsum(free.long(), 0)
+    pick = torch.searchsorted(csum, rank)  # the rank-th empty class (left side)
+    new_c = torch.where(moved, recolor_start + pick, c.long())
+    feasible = moved.sum() <= free.sum()
+    return new_c.to(color_of.dtype), moved, feasible
+
+
+def cells_remove(cells, cell_mask, slot, gate):
+    """Mask sensor ``slot`` out of every cell's candidate list (a new mask)."""
+    return cell_mask & ~((cells == slot) & gate)
+
+
+def cells_add(cells, cell_mask, centers, radii, x, slot, gate):
+    """Insert a joined sensor at ``x`` into every covering cell's list, in place.
+
+    A cell lists the sensor iff ``|x - center| <= radius`` (the build-time
+    covering bound stays valid, since adds only shrink kNN distances).  The
+    sensor takes each such cell's first free column; full cells are
+    skipped and counted in the returned ``overflowed`` (0-d tensor).
+    """
+    d2 = torch.sum((centers - x[None, :]) ** 2, dim=-1)
+    want = gate & (d2 <= radii**2)
+    free_col = torch.argmin(cell_mask.to(torch.uint8), dim=1)  # first False per cell
+    rows = torch.arange(cells.shape[0], device=cells.device)
+    has_free = ~cell_mask[rows, free_col]
+    do = want & has_free
+    cur = cells[rows, free_col]
+    cells[rows, free_col] = torch.where(do, slot.to(cells.dtype), cur)
+    cell_mask[rows, free_col] = has_free.logical_not() | do
+    return cells, cell_mask, torch.sum(want & ~has_free)
+
+
+def degree_headroom(degrees: torch.Tensor, alive: torch.Tensor, d_max: int) -> torch.Tensor:
+    """(n,) free reciprocal-anchor lanes per live row (0 for dead rows).
+
+    A symmetric join adopts a candidate only if its row has a lane to spare
+    (``degrees < d_max``); check before a churn campaign: a live row at 0
+    loses couplings to joins near it.
+    """
+    alive = alive.to(torch.bool)[: degrees.shape[0]]
+    free = torch.clamp(d_max - degrees, min=0)
+    return torch.where(alive, free, 0).to(degrees.dtype)

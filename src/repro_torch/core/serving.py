@@ -98,6 +98,40 @@ def make_serving_plan(
     )
 
 
+def plan_remove_sensor(plan: ServingPlan, slot) -> ServingPlan:
+    """Lifecycle repair: drop a removed sensor from every candidate list.
+
+    Pairs with ``streaming.remove_sensor``; one fixed-shape compare over the
+    (C, K_max) table, whose freed columns become holes a later
+    ``plan_add_sensor`` reuses.  Removals never shrink a cell's radius, so
+    kNN stays exact while at most the plan's build ``slack`` candidates of
+    any one cell have been removed.  Returns a new plan (``cells`` shared).
+    """
+    slot = torch.as_tensor(slot, device=plan.cells.device).to(plan.cells.dtype)
+    mask = plans.cells_remove(plan.cells, plan.cell_mask, slot, True)
+    return dataclasses.replace(plan, cell_mask=mask)
+
+
+def plan_add_sensor(plan: ServingPlan, x, slot) -> tuple[ServingPlan, torch.Tensor]:
+    """Lifecycle repair: insert a joined sensor into every covering cell.
+
+    Pairs with ``streaming.add_sensor``: the sensor at ``x`` enters the
+    first free column of every cell whose build-time exactness radius covers
+    it.  Returns ``(plan, overflowed)``, ``overflowed`` a 0-d tensor counting
+    the covering cells whose rows were full (build the plan with more
+    ``spare`` columns if it is ever nonzero).  The returned plan holds new
+    tables; the given one is left as it was.
+    """
+    dev = plan.cells.device
+    x = torch.as_tensor(x, dtype=plan.centers.dtype, device=dev).reshape(-1)
+    slot = torch.as_tensor(slot, device=dev).to(plan.cells.dtype)
+    cells, mask, overflowed = plans.cells_add(
+        plan.cells.clone(), plan.cell_mask.clone(), plan.centers, plan.radii, x, slot,
+        torch.ones((), dtype=torch.bool, device=dev),
+    )
+    return dataclasses.replace(plan, cells=cells, cell_mask=mask), overflowed
+
+
 def query_cells(plan: ServingPlan, xq: torch.Tensor) -> torch.Tensor:
     """Flattened cell id per query, (Q,) int32 (out-of-domain clipped)."""
     rel = (xq - plan.origin[None, :]) * plan.inv_cell[None, :]

@@ -1,9 +1,10 @@
 """SN-Train: distributed kernel regression by alternating projections.
 
 Port of ``repro.core.sn_train`` (the build, the serial and colored
-engines, ``field_view``).  Each
-sensor ``s`` keeps a local function ``f_s = sum_{j in N_s} c_{s,j} K(., x_j)``
-and the network shares a message vector ``z``.  One projection at s
+engines, the sensor-level robust engine ``robust_sweep``, ``field_view``).
+Each sensor ``s`` keeps a local function
+``f_s = sum_{j in N_s} c_{s,j} K(., x_j)`` and the network shares a message
+vector ``z``.  One projection at s
 (paper Table 1 / Eq. 18):
 
     c_{s,t} = (K_s + lambda_s I)^{-1} (z_{N_s, t-1} + lambda_s c_{s,t-1})
@@ -129,6 +130,27 @@ class SNTrainState:
     coef: torch.Tensor  # (n+1, D) per-sensor representer coefficients
 
 
+def factor(a: torch.Tensor, check: bool = False) -> torch.Tensor:
+    """Row-major lower Cholesky factors of a batch of SPD matrices.
+
+    Every factor of a local system goes through here: the build, streaming,
+    the lifecycle repairs and ``robust_sweep``'s per-sweep refactorization,
+    so a system factored again on the same batch shape gets the same bits.
+    ``check=False`` never syncs (a failure returns non-finite factors, as
+    the reference does); ``check=True`` raises on one (build time).  CUDA's
+    factors come back column-major, so they are made contiguous.
+    """
+    return torch.linalg.cholesky_ex(a, check_errors=check).L.contiguous()
+
+
+def _local_systems(gram: torch.Tensor, mask: torch.Tensor, lam_pad: torch.Tensor):
+    """``K_s + lambda_s I`` over the lanes of ``mask`` (..., R, D); the other
+    lanes get a unit diagonal, so their coefficients stay exactly 0."""
+    diag = torch.where(mask, lam_pad[:, None], torch.ones((), dtype=gram.dtype,
+                                                           device=gram.device))
+    return gram + torch.diag_embed(diag)
+
+
 def default_lambdas(topology: SensorTopology, kappa: float = 0.01) -> torch.Tensor:
     """Paper Sec. 4.1: lambda_i = kappa / |N_i|^2 (spare rows: 1.0)."""
     deg = topology.degrees.to(torch.float32)
@@ -208,11 +230,11 @@ def make_problem(
     gram = kernel(nbr_pos, nbr_pos)  # (n+1, D, D)
     outer = nbr_mask[:, :, None] & nbr_mask[:, None, :]
     gram = torch.where(outer, gram, torch.zeros((), dtype=dtype, device=dev))
-    diag = torch.where(nbr_mask, lam_pad[:, None], torch.ones((), dtype=dtype, device=dev))
-    # row-major: on CUDA the factor comes back column-major
-    chol = torch.linalg.cholesky(gram + torch.diag_embed(diag)).contiguous()
+    chol = factor(_local_systems(gram, nbr_mask, lam_pad), check=True)
 
-    t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
+    # copies: on the CPU ``as_tensor`` would share the numpy buffers, and the
+    # lifecycle events write these tables in place
+    t = lambda a, dt=None: torch.tensor(np.asarray(a), dtype=dt, device=dev)  # noqa: E731
     return SNTrainProblem(
         topology=topology,
         kernel=kernel,
@@ -272,13 +294,16 @@ def make_batch_problem(
     def tile(a):
         return a[None].expand((b,) + tuple(a.shape)).contiguous()
 
+    nbr_mask, gram = tile(base.nbr_mask), tile(base.gram)
     return dataclasses.replace(
         base,
         y=ys,
         nbr_pos=tile(base.nbr_pos),
-        nbr_mask=tile(base.nbr_mask),
-        gram=tile(base.gram),
-        chol=tile(base.chol),
+        nbr_mask=nbr_mask,
+        gram=gram,
+        # factored again at the (B, n+1) shape robust_sweep refactors, so
+        # its all-alive factors are these bits on any device
+        chol=factor(_local_systems(gram, nbr_mask, base.lam_pad), check=True),
         stream_pos=tile(base.stream_pos),
         beta=beta.clone(),
         anchor_w=tile(base.anchor_w),
@@ -606,6 +631,104 @@ def colored_sweep(
         state.z[None], state.coef[None], n_sweeps, engine, alive, delivered,
     )
     return SNTrainState(z=z[0], coef=coef[0])
+
+
+# ---------------------------------------------------------------------------
+# Robust engine: transient sensor liveness (paper Sec. 3.3 'Robustness').
+# ---------------------------------------------------------------------------
+
+
+def _masked_factors(problem: SNTrainProblem, nbr_mask, gram, alive_row):
+    """Every local system refactored under the liveness ``alive_row`` (n+1,).
+
+    The build's recipe over the effective lanes (occupied, and the slot's
+    owner and the row alive): the Gram masked to them, lambda on their
+    diagonal and 1 elsewhere, one batched ``factor`` call.  At all-True
+    liveness on an arrival-free batched problem this is the build's own
+    matrix at the build's (B, n+1) shape, so the factors are the cached
+    ones bit for bit; rows that absorbed arrivals carry grow-one factors,
+    which a fresh factorization matches to rounding.  nbr_mask/gram carry
+    an explicit leading field axis.  Returns (gram_eff, chol_eff).
+    """
+    alive_slot = plans.alive_slots(alive_row, problem.layout.slot_owner)
+    lane_alive = alive_slot[problem.nbr_idx.long()] & alive_row[:, None]  # (n+1, D)
+    mask_eff = nbr_mask & lane_alive[None]
+    outer = mask_eff[..., :, None] & mask_eff[..., None, :]
+    gram_eff = torch.where(outer, gram, 0.0)
+    return gram_eff, factor(_local_systems(gram_eff, mask_eff, problem.lam_pad))
+
+
+def _robust_colored(problem, state, alive_tn, n_sweeps, engine, delivered=None):
+    """Per sweep t: refactor under ``alive_tn[t]`` (one batched factor call),
+    then one colored sweep with those factors (one ``color_sweep`` launch
+    with the cuda engine)."""
+    batched = problem.batched
+    nbr_mask = problem.nbr_mask if batched else problem.nbr_mask[None]
+    gram = problem.gram if batched else problem.gram[None]
+    z = state.z if batched else state.z[None]
+    coef = state.coef if batched else state.coef[None]
+    tail = torch.ones((1,), dtype=torch.bool, device=problem.device)
+    for t in range(n_sweeps):
+        alive_row = problem.alive & torch.cat([alive_tn[t], tail])
+        gram_eff, chol_eff = _masked_factors(problem, nbr_mask, gram, alive_row)
+        z, coef = _colored_core(
+            problem, nbr_mask, gram_eff, chol_eff, z, coef, 1, engine,
+            alive=alive_row, delivered=None if delivered is None else delivered[t : t + 1],
+        )
+    if batched:
+        return SNTrainState(z=z, coef=coef)
+    return SNTrainState(z=z[0], coef=coef[0])
+
+
+def robust_sweep(
+    problem: SNTrainProblem,
+    state: SNTrainState,
+    alive,
+    n_sweeps: int = 1,
+    *,
+    engine: str = "plan",
+    delivered: torch.Tensor | None = None,
+) -> SNTrainState:
+    """SN-Train under a changing sensor liveness (paper Sec. 3.3 'Robustness').
+
+    ``alive`` is (n,) or (n_sweeps, n) bool; sweep t runs the colored engine
+    under ``alive[t] & problem.alive``: dead sensors neither update nor are
+    heard from, so a down mote's messages and coefficients persist and a
+    healed one resumes from its last state.  The liveness is transient (no
+    event patches the cached factors), so each sweep refactors every masked
+    local system in one batched call, then runs one colored sweep with
+    ``engine`` ("plan", "onehot" or "cuda": one ``color_sweep`` launch per
+    sweep).  Batched and single-field problems both work.  "plan" ==
+    "onehot" bitwise at any liveness; at all-True liveness on an
+    arrival-free problem ``robust_sweep == colored_sweep`` bitwise, engine
+    by engine (the factors are the cached ones, see ``_masked_factors``).
+    ``delivered``: optional (n_sweeps, n+1, D) link-delivery mask composed
+    on top (all-True is the plain robust sweep bitwise).
+
+    PERSISTENT membership changes belong to ``streaming.add_sensor`` /
+    ``remove_sensor``, which patch the factors once per event.  Link-level
+    (n_sweeps, n, D) traces (the reference's ``robust_sweep_links``) are
+    not ported yet.
+    """
+    alive = torch.as_tensor(alive, device=problem.device)
+    if alive.ndim == 3:
+        raise NotImplementedError(
+            "link-level (n_sweeps, n, D) liveness traces run the reference's "
+            "robust_sweep_links, which is not ported yet"
+        )
+    alive = alive.to(torch.bool)
+    if alive.ndim == 1:
+        alive = alive[None].expand((n_sweeps,) + tuple(alive.shape))
+    if tuple(alive.shape) != (n_sweeps, problem.n):
+        raise ValueError(
+            f"alive must be (n,) or (n_sweeps={n_sweeps}, n={problem.n}); "
+            f"got {tuple(alive.shape)}"
+        )
+    if delivered is not None and delivered.shape[0] != n_sweeps:
+        raise ValueError(
+            f"delivered has {delivered.shape[0]} sweeps, expected {n_sweeps}"
+        )
+    return _robust_colored(problem, state, alive, n_sweeps, engine, delivered)
 
 
 def local_only(problem: SNTrainProblem) -> SNTrainState:

@@ -1,9 +1,10 @@
 """Streaming measurement absorption for batched SN-Train problems.
 
-Port of ``repro.core.streaming``, part 1: ``absorb``, ``absorb_many``,
+Port of ``repro.core.streaming``: ``absorb``, ``absorb_many``,
 ``absorb_wave``, ``evict_oldest``, exponential forgetting (``beta < 1``),
-``pad_arrivals``, ``capacity_left`` and ``rebuild_chol``.  The network
-lifecycle (sensor join/leave) is not ported yet.
+``pad_arrivals``, ``capacity_left``, ``rebuild_chol``, and the network
+lifecycle: ``add_sensor`` (a symmetric join) and ``remove_sensor`` (a
+leave), with their ``JoinReceipt``.
 
 An arrival ``(field b, sensor s, location x, value y)`` becomes one more
 data point owned by sensor s: it occupies the next free padded lane ``k``
@@ -55,6 +56,17 @@ How the port computes it:
   shared between rows, the z sentinel), so no write order can change a
   result.  Rows that must not write send their lanes to z's sentinel or to
   a scratch row past ``stream_pos``.
+- The lifecycle events work the same way on the O(degree) rows they
+  affect (the adopters of a join, the neighbors of a leave; padded with
+  the sentinel row n): ``_insert_rows`` grows each adopter's reciprocal
+  anchor lane at its stream boundary, ``_delete_rows`` deletes each
+  neighbor's lane for the victim and restores a reserved id, and both
+  refactor only those rows (``_refactor_rows``).  Indices the reference
+  lets JAX clamp or drop (the sentinel row past ``topology.degrees``, the
+  sentinel's out-of-range color) are clamped here, with a gated no-op
+  write, so no table depends on an out-of-range index.  A dropped join
+  (no free spare, or the recolor pool exhausted) writes only values it
+  read: a bitwise no-op.
 """
 
 from __future__ import annotations
@@ -64,9 +76,51 @@ from typing import NamedTuple
 
 import torch
 
-from .sn_train import SNTrainProblem, SNTrainState
+from . import plans
+from .sn_train import SNTrainProblem, SNTrainState, factor
 
 _TABLES = ("nbr_pos", "nbr_mask", "gram", "chol", "stream_pos", "anchor_w")
+# what a join or a leave writes, beyond _TABLES
+_EVENT_TABLES = ("y", "nbr_idx", "lam_pad", "plan_z", "plan_coef", "color_members",
+                 "color_mask", "color_of", "member_pos", "alive")
+
+
+class JoinReceipt(NamedTuple):
+    """Outcome of one symmetric join (``add_sensor``), all tensors.
+
+    ``joined``: () bool; False means the join was a bitwise no-op (no
+    spare row, or the recolor pool was exhausted).  ``slot``: () int64, the
+    claimed row (meaningful when ``joined``).  ``adopted``/``adopted_mask``:
+    (A,) the neighbor rows that adopted a reciprocal anchor lane (padded
+    with ``n``).  ``skipped``/``skipped_mask``: (A,) live in-radius
+    neighbors NOT adopted because their rows had no free lane (each a
+    coupling lost against a from-scratch build; see
+    ``plans.degree_headroom``).  ``dropped_newest``: (B, A) bool, the
+    (field, adopter) pairs whose row was full, so the anchor lane displaced
+    the newest absorbed arrival.
+    """
+
+    joined: torch.Tensor
+    slot: torch.Tensor
+    adopted: torch.Tensor
+    adopted_mask: torch.Tensor
+    skipped: torch.Tensor
+    skipped_mask: torch.Tensor
+    dropped_newest: torch.Tensor
+
+    def to_json(self) -> dict:
+        """Plain-JSON receipt (schema-tagged; syncs at the call site)."""
+        host = lambda t: t.cpu().numpy()  # noqa: E731
+        return {
+            "schema": "join_receipt/1",
+            "joined": bool(self.joined),
+            "slot": int(self.slot),
+            "adopted": host(self.adopted).tolist(),
+            "adopted_mask": host(self.adopted_mask).astype(bool).tolist(),
+            "skipped": host(self.skipped).tolist(),
+            "skipped_mask": host(self.skipped_mask).astype(bool).tolist(),
+            "dropped_newest": host(self.dropped_newest).astype(bool).tolist(),
+        }
 
 
 class AbsorbReceipt(NamedTuple):
@@ -102,12 +156,20 @@ def _check(problem: SNTrainProblem, on_full: str = "drop") -> None:
         raise ValueError(f"on_full must be 'drop' or 'evict', got {on_full!r}")
 
 
-def _writable(problem, state, donate: bool):
-    """The problem and state the row functions may write in place."""
+def _writable(problem, state, donate: bool, tables=_TABLES):
+    """The problem and state the row functions may write in place.
+
+    A lifecycle event also writes ``_EVENT_TABLES`` and the topology's
+    positions and degrees (``tables=None``)."""
     if donate:
         return problem, state
+    if tables is None:
+        tables = _TABLES + _EVENT_TABLES
+        topo = problem.topology
+        problem = dataclasses.replace(problem, topology=dataclasses.replace(
+            topo, positions=topo.positions.clone(), degrees=topo.degrees.clone()))
     problem = dataclasses.replace(
-        problem, **{name: getattr(problem, name).clone() for name in _TABLES}
+        problem, **{name: getattr(problem, name).clone() for name in tables}
     )
     return problem, SNTrainState(z=state.z.clone(), coef=state.coef.clone())
 
@@ -176,12 +238,6 @@ def _chol_diag_update(chol: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     return L
 
 
-def _chol(a: torch.Tensor) -> torch.Tensor:
-    """Row-major lower Cholesky factors, with no sync on failure (the
-    reference returns NaN there; CUDA's factors come back column-major)."""
-    return torch.linalg.cholesky_ex(a, check_errors=False).L.contiguous()
-
-
 def _evict_rows(problem, state, f, s, gate) -> torch.Tensor:
     """Free the OLDEST arrival of each row (f[i], s[i]) where ``gate``, in place.
 
@@ -228,7 +284,7 @@ def _evict_rows(problem, state, f, s, gate) -> torch.Tensor:
     aw2 = torch.where(freed, 1.0, permuted(aw))
     lane_alive = problem.alive_z[ids]
     diag = torch.where(new_mask & lane_alive, problem.lam_pad[s][:, None], 1.0)
-    new_chol = _chol(g2 + torch.diag_embed(diag))
+    new_chol = factor(g2 + torch.diag_embed(diag))
 
     okd = ok[:, None]
     problem.nbr_pos[f, s] = torch.where(okd[..., None], new_pos, pos)
@@ -536,4 +592,459 @@ def rebuild_chol(problem: SNTrainProblem) -> torch.Tensor:
     (occupied & alive); padded and dead lanes get a unit diagonal."""
     live = problem.alive_z[problem.nbr_idx.long()] & problem.alive[:, None]
     diag = torch.where(problem.nbr_mask & live, problem.lam_pad[:, None], 1.0)
-    return _chol(problem.gram + torch.diag_embed(diag))
+    return factor(problem.gram + torch.diag_embed(diag))
+
+
+# ---------------------------------------------------------------------------
+# Network lifecycle: a sensor joins (add_sensor) or leaves (remove_sensor).
+#
+# Joins are SYMMETRIC: the newcomer adopts its neighbors AND each adopter
+# grows a reciprocal anchor lane at the newcomer's position (with on-device
+# recoloring when two same-color adopters would now share the newcomer's
+# slot), so the post-join problem is the one a fresh build on the post-join
+# topology gives.  A leave is the exact inverse.  Both gather, repair and
+# refactor only the O(degree) affected rows.
+# ---------------------------------------------------------------------------
+
+
+def _refactor_rows(problem, alive_new, rows, idx_rows, mask_rows, gram_rows, lam_rows):
+    """Masked Cholesky factors of O(degree) gathered rows, (B, R, D, D).
+
+    The effective-lane convention of ``rebuild_chol``: a lane counts iff it
+    is occupied and its slot's owner and its row are alive; the others get a
+    unit diagonal.  ``rows`` (R,) (sentinel-padded), ``idx_rows`` (R, D) the
+    post-event slot tables, ``mask_rows`` (B, R, D), ``gram_rows``
+    (B, R, D, D), ``lam_rows`` (R,) the rows' post-event regularizers.
+    """
+    owner = problem.layout.slot_owner[idx_rows.long()]
+    lane_alive = alive_new[owner] & alive_new[rows][:, None]  # (R, D)
+    mask_eff = mask_rows & lane_alive[None]
+    diag = torch.where(mask_eff, lam_rows[None, :, None], 1.0)
+    outer = mask_eff[..., :, None] & mask_eff[..., None, :]
+    return factor(torch.where(outer, gram_rows, 0.0) + torch.diag_embed(diag))
+
+
+def _lane_gather(t: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """t (B, R, D, ...) with lanes reordered by ``src`` (R, D)."""
+    p = src[None].reshape(src[None].shape + (1,) * (t.ndim - 3)).expand_as(t)
+    return torch.gather(t, 2, p)
+
+
+def _gram_gather(g: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """g (B, R, D, D) with rows and columns reordered by ``src`` (R, D)."""
+    g = _lane_gather(g, src)
+    return torch.gather(g, 3, src[None, :, None, :].expand_as(g))
+
+
+def _insert_rows(problem, state, rows, valid, slot, x, alive_new, repair, kappa):
+    """Each adopter row ``rows[i]`` (where ``valid``) grows an anchor lane for
+    the newcomer ``slot`` at ``x``, in place.
+
+    The lane is inserted at the row's stream boundary (its pre-join degree),
+    so the structural lanes stay a prefix and absorb's left-to-right fill
+    survives; absorbed arrivals shift up one lane, the last lane's reserved
+    id falls out of the table (its message and stream position reset), and a
+    field whose row was full loses its newest arrival.  The row's regularizer
+    follows its new degree when ``repair``; its factor is refactored.
+    Returns the (B, A) ``dropped_newest`` flags.
+    """
+    n, s_cap = problem.n, problem.n_stream
+    d_max = problem.nbr_idx.shape[1]
+    topo = problem.topology
+    ar = torch.arange(d_max, device=rows.device)
+    deg = topo.degrees[torch.clamp(rows, max=n - 1)].long()  # pre-join degrees
+    at_new = ar[None, :] == deg[:, None]  # (A, D) the inserted lane
+    src = torch.where(ar[None, :] > deg[:, None], ar[None, :] - 1, ar[None, :])
+
+    # every gather first
+    old_idx = problem.nbr_idx[rows]  # (A, D)
+    orphan = old_idx[:, d_max - 1].long()  # reserved ids falling out
+    pos = problem.nbr_pos[:, rows]  # (B, A, D, d)
+    mask = problem.nbr_mask[:, rows]
+    gram = problem.gram[:, rows]
+    chol = problem.chol[:, rows]
+    aw = problem.anchor_w[:, rows]
+    coef = state.coef[:, rows]
+    lam = problem.lam_pad[rows]
+    z_orphan = state.z[:, orphan]
+    spv = _with_scratch_row(problem.stream_pos)
+    sp_idx = torch.where(valid, torch.clamp(orphan - n, 0, s_cap), s_cap)
+
+    new_idx = torch.where(at_new, slot.to(old_idx.dtype), torch.gather(old_idx, 1, src))
+    dropped = mask[:, :, d_max - 1] & valid[None, :]
+    new_pos = torch.where(at_new[None, :, :, None], x.to(pos.dtype), _lane_gather(pos, src))
+    new_mask = at_new[None] | _lane_gather(mask, src)
+    new_coef = torch.where(at_new[None], 0.0, _lane_gather(coef, src))
+    new_aw = torch.where(at_new[None], 1.0, _lane_gather(aw, src))
+    # the anchor's kernel row against the row's occupied lanes (K(x, x) at
+    # the new lane); decayed stream lanes carry their anchor weights
+    kv = problem.kernel.pairs(x.to(pos.dtype), new_pos)  # (B, A, D)
+    krow = torch.where(new_mask, kv * new_aw.to(kv.dtype), 0.0).to(gram.dtype)
+    g = _gram_gather(gram, src)
+    g = torch.where(at_new[None, :, None, :], krow[..., None], g)
+    g = torch.where(at_new[None, :, :, None], krow[..., None, :], g)
+    deg_new = (deg + 1).to(lam.dtype)
+    new_lam = torch.where(repair & valid, kappa / (deg_new * deg_new), lam)
+    new_chol = _refactor_rows(problem, alive_new, rows, new_idx, new_mask, g, new_lam)
+
+    v, vb = valid[:, None], valid[None, :, None]
+    problem.nbr_idx[rows] = torch.where(v, new_idx, old_idx)
+    problem.nbr_pos[:, rows] = torch.where(vb[..., None], new_pos, pos)
+    problem.nbr_mask[:, rows] = torch.where(vb, new_mask, mask)
+    problem.gram[:, rows] = torch.where(vb[..., None], g, gram)
+    problem.chol[:, rows] = torch.where(vb[..., None], new_chol, chol)
+    problem.anchor_w[:, rows] = torch.where(vb, new_aw, aw)
+    problem.lam_pad[rows] = new_lam
+    state.coef[:, rows] = torch.where(vb, new_coef, coef)
+    topo.degrees.index_add_(0, torch.clamp(rows, max=n - 1), valid.to(topo.degrees.dtype))
+    # the orphaned slots' messages and arrival positions reset (lanes that
+    # must not write go to the sentinel's own value and the scratch row)
+    state.z[:, orphan] = torch.where(valid[None], 0.0, z_orphan)
+    spv[:, sp_idx] = torch.where(valid[None, :, None], 0.0, spv[:, sp_idx])
+    problem.stream_pos.copy_(spv[:, :s_cap])
+    return dropped
+
+
+def _delete_rows(problem, state, rows, valid, victim, alive_new, repair, kappa):
+    """Each row ``rows[i]`` (where ``valid``) deletes its lane for ``victim``, in place.
+
+    The lanes above it shift down one (keeping [structure | arrivals | free]
+    and absorb's fill), and the freed last lane restores the row's first
+    orphaned reserved id (none left: the inert sentinel id, which backs no
+    message slot).  The row's regularizer follows its new degree when
+    ``repair``; its factor is refactored.
+    """
+    n = problem.n
+    d_max = problem.nbr_idx.shape[1]
+    topo = problem.topology
+    ar = torch.arange(d_max, device=rows.device)
+    old_idx = problem.nbr_idx[rows]  # (R, D)
+    lane = torch.argmax((old_idx == victim.to(old_idx.dtype)).to(torch.uint8), dim=1)
+    src = torch.where(ar[None, :] >= lane[:, None],
+                      torch.clamp(ar[None, :] + 1, max=d_max - 1), ar[None, :])
+    shifted = torch.gather(old_idx, 1, src)
+    ids0 = problem.layout.nbr_idx0[rows]  # the pristine table: the reserved pool
+    present = (ids0[:, :, None] == shifted[:, None, : d_max - 1]).any(-1)
+    cand = (ids0 >= n) & ~present
+    pick = torch.argmax(cand.to(torch.uint8), dim=1)
+    restored = torch.gather(ids0, 1, pick[:, None])[:, 0]
+    restored = torch.where(cand.any(dim=1), restored, problem.sentinel)
+    freed = ar == d_max - 1
+    new_idx = torch.where(freed[None, :], restored[:, None].to(shifted.dtype), shifted)
+
+    # every gather first
+    pos = problem.nbr_pos[:, rows]  # (B, R, D, d)
+    mask = problem.nbr_mask[:, rows]
+    gram = problem.gram[:, rows]
+    chol = problem.chol[:, rows]
+    aw = problem.anchor_w[:, rows]
+    coef = state.coef[:, rows]
+    lam = problem.lam_pad[rows]
+    r_in = torch.clamp(rows, max=n - 1)
+    own = topo.positions[r_in].to(pos.dtype)  # (R, d)
+    deg = topo.degrees[r_in]
+
+    new_pos = torch.where(freed[None, None, :, None], own[None, :, None, :],
+                          _lane_gather(pos, src))
+    new_mask = ~freed[None, None, :] & _lane_gather(mask, src)
+    new_coef = torch.where(freed[None, None, :], 0.0, _lane_gather(coef, src))
+    new_aw = torch.where(freed[None, None, :], 1.0, _lane_gather(aw, src))
+    g = _gram_gather(gram, src)
+    g = torch.where(freed[None, None, :, None] | freed[None, None, None, :], 0.0, g)
+    deg_post = torch.clamp(deg - 1, min=1).to(lam.dtype)
+    new_lam = torch.where(repair & valid, kappa / (deg_post * deg_post), lam)
+    new_chol = _refactor_rows(problem, alive_new, rows, new_idx, new_mask, g, new_lam)
+
+    v, vb = valid[:, None], valid[None, :, None]
+    problem.nbr_idx[rows] = torch.where(v, new_idx, old_idx)
+    problem.nbr_pos[:, rows] = torch.where(vb[..., None], new_pos, pos)
+    problem.nbr_mask[:, rows] = torch.where(vb, new_mask, mask)
+    problem.gram[:, rows] = torch.where(vb[..., None], g, gram)
+    problem.chol[:, rows] = torch.where(vb[..., None], new_chol, chol)
+    problem.anchor_w[:, rows] = torch.where(vb, new_aw, aw)
+    problem.lam_pad[rows] = new_lam
+    state.coef[:, rows] = torch.where(vb, new_coef, coef)
+    topo.degrees.index_add_(0, r_in, -valid.to(topo.degrees.dtype))
+
+
+def _owned_slots(problem, row: torch.Tensor) -> torch.Tensor:
+    """(D+1,) the message slots row ``row`` (1,) owns: its own and the
+    reserved ids of its pristine table (``row`` again where a lane is
+    structural) — the slots ``layout.slot_owner`` maps to it."""
+    ids0 = problem.layout.nbr_idx0[row][0].long()
+    return torch.cat([row, torch.where(ids0 >= problem.n, ids0, row)])
+
+
+def _clear_owned(problem, state, row, gate, stream_pos: bool) -> None:
+    """Reset the messages (and with ``stream_pos`` the arrival positions) of
+    the slots ``row`` owns, in place."""
+    n, s_cap = problem.n, problem.n_stream
+    owned = _owned_slots(problem, row)
+    state.z[:, owned] = torch.where(gate, 0.0, state.z[:, owned])
+    if not stream_pos:
+        return
+    spv = _with_scratch_row(problem.stream_pos)
+    sp = torch.where(gate & (owned >= n), owned - n, s_cap)
+    spv[:, sp] = torch.where(gate, 0.0, spv[:, sp])
+    problem.stream_pos.copy_(spv[:, :s_cap])
+
+
+def _nearest(d2: torch.Tensor, gate: torch.Tensor, k: int):
+    """The k gated entries of least ``d2``, nearest first, ties to the lower
+    id (the reference's ``top_k`` over ``-d2``); returns (ids (k,), valid (k,))."""
+    neg = torch.where(gate, -d2, float("-inf"))
+    vals, ids = torch.sort(neg, descending=True, stable=True)
+    return ids[:k], torch.isfinite(vals[:k])
+
+
+def _scalar(v, dtype, dev) -> torch.Tensor:
+    """A 0-d tensor on ``dev`` (a Python number is filled there, not copied)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=dev, dtype=dtype).reshape(())
+    return torch.full((), v, dtype=dtype, device=dev)
+
+
+def _check_lifecycle(problem: SNTrainProblem) -> None:
+    if not problem.batched:
+        raise ValueError("lifecycle ops require a batched problem (use B = 1)")
+
+
+def add_sensor(
+    problem: SNTrainProblem,
+    state: SNTrainState,
+    x,
+    ys,
+    *,
+    lam=-1.0,
+    repair_lambda=False,
+    kappa=0.01,
+    donate: bool = False,
+) -> tuple[SNTrainProblem, SNTrainState, JoinReceipt]:
+    """A sensor JOINS the network at position ``x`` with measurements ``ys`` (B,).
+
+    It claims the first dead spare row (``make_problem(..., n_max=...)``
+    reserves them; spares carry reserved singleton colors) and, on the
+    device at fixed shapes:
+
+      * adopts the nearest live in-radius sensors whose rows have a lane to
+        spare (up to D - 1 of them, after itself);
+      * every adopter grows a reciprocal anchor lane at ``x``
+        (``_insert_rows``), so the coupling is symmetric;
+      * same-color adopters, which now share the newcomer's slot, are
+        separated by moving all but the first of each color into reserved
+        empty recolor classes (``plans.resolve_join_conflicts``); an
+        exhausted pool DROPS the join;
+      * builds the newcomer's masked Gram and factor (one D x D system shared
+        by the fields) and refactors the adopter rows only;
+      * rewrites the scatter plans of the adopters and the newcomer, seeds
+        its message slot with ``ys`` (Table-1 init) and marks it alive.
+
+    ``lam``: the newcomer's regularizer; negative applies ``kappa``/|N|^2 to
+    its adopted degree.  ``repair_lambda`` re-derives each adopter's
+    regularizer from its new degree (kappa / |N_i|^2) inside the
+    refactorization; ``repair_lambda`` and ``kappa`` may be tensors.
+
+    Returns ``(problem, state, receipt)``; ``receipt.joined`` is False (a
+    bitwise no-op) when no spare row is free or the recolor pool is
+    exhausted.  Nothing syncs with the host.  A serving process also
+    patches its query plan: ``serving.plan_add_sensor(plan, x,
+    receipt.slot)``.  ``donate`` has ``absorb``'s contract.
+    """
+    _check_lifecycle(problem)
+    topo = problem.topology
+    if topo.n_spare == 0:
+        raise ValueError(
+            "problem has no spare rows — build with make_problem(..., n_max=n + spares) "
+            "(or build_topology n_max=)"
+        )
+    if float(topo.radius) <= 0.0:
+        raise ValueError(
+            "add_sensor needs a geometric topology (radius > 0) to find the joining "
+            "sensor's neighborhood"
+        )
+    dev, dt = problem.device, problem.nbr_pos.dtype
+    ldt = problem.lam_pad.dtype
+    x = torch.as_tensor(x, dtype=dt, device=dev).reshape(-1)
+    ys = torch.as_tensor(ys, dtype=state.z.dtype, device=dev).reshape(-1)
+    lam = _scalar(lam, ldt, dev)
+    repair = _scalar(repair_lambda, torch.bool, dev)
+    kappa = _scalar(kappa, ldt, dev)
+    problem, state = _writable(problem, state, donate, tables=None)
+    topo = problem.topology
+    n, n_base = problem.n, problem.n_base
+    d_max = problem.nbr_idx.shape[1]
+    lay = problem.layout
+
+    # 1. the first dead spare row; none free => DROP
+    spare_alive = problem.alive[n_base:n]
+    have_spare = (~spare_alive).any()
+    slot = n_base + torch.argmin(spare_alive.to(torch.uint8)).reshape(1)  # (1,)
+
+    # 2. adopt the nearest live in-radius rows with a lane to spare
+    pos = topo.positions.to(dt)  # (n, d)
+    d2 = torch.sum((pos - x[None, :]) ** 2, dim=-1)
+    radius = torch.full((), topo.radius, dtype=dt, device=dev)
+    in_radius = problem.alive[:n] & (d2 < radius * radius)
+    k_n = min(d_max - 1, n)
+    ids, valid0 = _nearest(d2, in_radius & (topo.degrees < d_max), k_n)
+    c = 1 + valid0.sum()  # the newcomer's degree
+    lam = torch.where(lam >= 0, lam, kappa / c.to(ldt) ** 2)
+    # in-radius rows without a free lane: couplings lost, reported
+    sk_ids, sk_valid = _nearest(d2, in_radius & (topo.degrees >= d_max), k_n)
+
+    # 3. recolor same-color adopters; an exhausted pool => DROP
+    new_colors, moved, feasible = plans.resolve_join_conflicts(
+        problem.color_of, problem.color_mask, ids, valid0, problem.recolor_start
+    )
+    ok = have_spare & feasible
+    valid = valid0 & ok
+    mv = moved & valid
+    rows = torch.where(valid, ids, n)  # (A,) padded with the sentinel row
+
+    # 4. the newcomer's slot table [self, adopted slots...], its free lanes
+    # back on the pristine reserved ids (a recycled row starts clean)
+    pad_k = d_max - 1 - k_n
+    sel_ids = torch.cat([slot, ids, ids.new_zeros((pad_k,))])
+    sel_valid = torch.cat([valid0.new_ones((1,)), valid0, valid0.new_zeros((pad_k,))])
+    new_idx = torch.where(sel_valid, sel_ids, lay.nbr_idx0[slot][0].long())
+    new_pos = torch.where(sel_valid[:, None], pos[torch.clamp(sel_ids, max=n - 1)], x[None, :])
+    new_pos[0] = x  # lane 0 is the newcomer itself
+
+    # 5. its local system and factor (one, shared by every field)
+    gdt = problem.gram.dtype
+    outer = sel_valid[:, None] & sel_valid[None, :]
+    gram_row = torch.where(outer, problem.kernel(new_pos, new_pos), 0.0).to(gdt)
+    chol_row = factor(gram_row + torch.diag_embed(torch.where(sel_valid, lam, 1.0).to(gdt)))
+
+    # everything read from the slot's row and the color tables before writing
+    old_c, old_m = problem.color_of[rows], problem.member_pos[rows]
+    old_idx_r = problem.nbr_idx[rows]
+    slot_color = problem.color_of[slot]
+    b = problem.batch_size
+    okb = ok.reshape(1, 1)
+
+    # 6. the adopters' reciprocal anchor lanes (reads the post-join liveness)
+    problem.alive[slot] = ok | problem.alive[slot]
+    dropped = _insert_rows(problem, state, rows, valid, slot, x, problem.alive, repair, kappa)
+
+    # the newcomer's row
+    topo.positions[slot] = torch.where(ok, x.to(topo.positions.dtype), topo.positions[slot])
+    topo.degrees[slot] = torch.where(ok, c.to(topo.degrees.dtype), topo.degrees[slot])
+    problem.y[:, slot] = torch.where(ok, ys[:, None], problem.y[:, slot])
+    problem.lam_pad[slot] = torch.where(ok, lam, problem.lam_pad[slot])
+    problem.nbr_idx[slot] = torch.where(ok, new_idx.to(problem.nbr_idx.dtype),
+                                        problem.nbr_idx[slot])
+    problem.nbr_mask[:, slot] = torch.where(okb, sel_valid, problem.nbr_mask[:, slot])
+    problem.nbr_pos[:, slot] = torch.where(okb[..., None, None], new_pos,
+                                           problem.nbr_pos[:, slot])
+    problem.gram[:, slot] = torch.where(okb[..., None, None], gram_row, problem.gram[:, slot])
+    problem.chol[:, slot] = torch.where(okb[..., None, None], chol_row, problem.chol[:, slot])
+    problem.anchor_w[:, slot] = torch.where(okb, 1.0, problem.anchor_w[:, slot])
+
+    # 7. colors: recolored adopters change classes, the newcomer enters its
+    # singleton class, and the repaired rows' scatter codes are rewritten
+    cm, cmk = problem.color_members, problem.color_mask
+    plans.members_clear(cm, cmk, old_c, old_m, mv, n)
+    plans.members_set(cm, cmk, new_colors, torch.zeros_like(new_colors), rows, mv)
+    plans.members_set(cm, cmk, slot_color, torch.zeros_like(slot_color), slot, ok.reshape(1))
+    new_c = torch.where(mv, new_colors, old_c)
+    new_m = torch.where(mv, 0, old_m)
+    problem.color_of[rows] = new_c
+    problem.member_pos[rows] = new_m
+    plans.plan_rows_remove(problem.plan_z, problem.plan_coef, old_c, rows, old_idx_r, valid)
+    plans.plan_rows_add(problem.plan_z, problem.plan_coef, new_c, new_m, rows,
+                        problem.nbr_idx[rows], valid)
+    plans.color_plans_add(problem.plan_z, problem.plan_coef, problem.color_of,
+                          problem.member_pos, slot, problem.nbr_idx[slot][0], ok.reshape(1))
+
+    # 8. the state: the recycled row's owned slots reset, then its message
+    # slot takes the measurements; its coefficients start at 0
+    _clear_owned(problem, state, slot, ok, stream_pos=False)
+    state.z[:, slot] = torch.where(ok, ys[:, None], state.z[:, slot])
+    state.coef[:, slot] = torch.where(okb[..., None], 0.0, state.coef[:, slot])
+    receipt = JoinReceipt(
+        joined=ok,
+        slot=slot[0],
+        adopted=rows,
+        adopted_mask=valid,
+        skipped=torch.where(sk_valid & ok, sk_ids, n),
+        skipped_mask=sk_valid & ok,
+        dropped_newest=dropped,
+    )
+    return problem, state, receipt
+
+
+def remove_sensor(
+    problem: SNTrainProblem,
+    state: SNTrainState,
+    slot,
+    *,
+    repair_lambda=False,
+    kappa=0.01,
+    donate: bool = False,
+) -> tuple[SNTrainProblem, SNTrainState, torch.Tensor]:
+    """A sensor LEAVES the network: the exact inverse of the symmetric join.
+
+    Marks the row dead (its reserved slots die with it through the slot
+    owner map); every live row its own slot table lists (symmetry makes
+    that the complete set of rows referencing it) deletes its lane for the
+    victim (``_delete_rows``) and is refactored, O(degree) rows, never all
+    n.  Their scatter codes are rewritten, the victim's revert to "keep",
+    its class membership clears (freeing a recolor class), its row returns
+    to the pristine slot table with no occupied lane, and its messages and
+    stream positions reset.  Removed spare rows are recycled by the next
+    ``add_sensor``.
+
+    Returns ``(problem, state, removed)`` with ``removed`` a 0-d bool
+    tensor; removing a dead or out-of-range row is a bitwise no-op.
+    ``repair_lambda`` re-derives the affected rows' regularizers from their
+    new degrees.  A serving process also patches its query plan:
+    ``serving.plan_remove_sensor(plan, slot)``.  ``donate`` has
+    ``absorb``'s contract.
+    """
+    _check_lifecycle(problem)
+    dev = problem.device
+    ldt = problem.lam_pad.dtype
+    slot = _ints(slot, problem)  # (1,)
+    repair = _scalar(repair_lambda, torch.bool, dev)
+    kappa = _scalar(kappa, ldt, dev)
+    problem, state = _writable(problem, state, donate, tables=None)
+    n = problem.n
+    d_max = problem.nbr_idx.shape[1]
+    topo, lay = problem.topology, problem.layout
+    ok = ((slot >= 0) & (slot < n) & problem.alive[torch.clamp(slot, 0, n)])[0]
+    sl = torch.clamp(slot, 0, n - 1)  # a safe index; the writes are gated on ok
+    okb = ok.reshape(1, 1)
+
+    # the affected rows: the live rows the victim's own table lists
+    victim_idx = problem.nbr_idx[sl][0].long()  # (D,)
+    nb = ((victim_idx < n) & (victim_idx != sl) & problem.alive[torch.clamp(victim_idx, max=n)]
+          & ok)
+    rows = torch.where(nb, victim_idx, n)
+    c_r, m_r = problem.color_of[rows], problem.member_pos[rows]
+    old_idx_r = problem.nbr_idx[rows]
+    sl_color, sl_pos = problem.color_of[sl], problem.member_pos[sl]
+
+    problem.alive[sl] = ~ok & problem.alive[sl]
+    _delete_rows(problem, state, rows, nb, sl, problem.alive, repair, kappa)
+
+    # the victim's own row returns to its build state with nothing occupied
+    problem.nbr_idx[sl] = torch.where(ok, lay.nbr_idx0[sl], problem.nbr_idx[sl])
+    problem.nbr_mask[:, sl] = ~okb & problem.nbr_mask[:, sl]
+    problem.gram[:, sl] = torch.where(okb[..., None, None], 0.0, problem.gram[:, sl])
+    eye = torch.eye(d_max, dtype=problem.chol.dtype, device=dev)
+    problem.chol[:, sl] = torch.where(okb[..., None, None], eye, problem.chol[:, sl])
+    problem.anchor_w[:, sl] = torch.where(okb, 1.0, problem.anchor_w[:, sl])
+    state.coef[:, sl] = torch.where(okb[..., None], 0.0, state.coef[:, sl])
+    topo.degrees[sl] = torch.where(ok, 0, topo.degrees[sl]).to(topo.degrees.dtype)
+    _clear_owned(problem, state, sl, ok, stream_pos=True)
+
+    # scatter codes and colors
+    plans.plan_rows_remove(problem.plan_z, problem.plan_coef, c_r, rows, old_idx_r, nb)
+    plans.plan_rows_add(problem.plan_z, problem.plan_coef, c_r, m_r, rows,
+                        problem.nbr_idx[rows], nb)
+    plans.color_plans_remove(problem.plan_z, problem.plan_coef, problem.color_of, sl,
+                             victim_idx, ok.reshape(1))
+    plans.members_clear(problem.color_members, problem.color_mask, sl_color, sl_pos,
+                        ok.reshape(1), n)
+    return problem, state, ok

@@ -34,6 +34,7 @@ FLAGS = (
 BUILD_TIMEOUT_S = 900
 
 _loaded: dict[str, ctypes.CDLL] = {}
+builds = 0  # sources compiled by build_all in this process
 
 
 def _nvcc() -> str:
@@ -63,9 +64,11 @@ def build_all() -> dict[str, str]:
     All ``nvcc`` processes start together and are all waited for; any
     failure raises after the others have finished.
     """
+    global builds
     todo = [name for name in SOURCES if not lib_path(name).exists()]
     if not todo:
         return {}
+    builds += len(todo)
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}

@@ -29,8 +29,18 @@ then a warm window and a timed window of A // 2 through
 colored sweeps with the train engine follow, and the queries run on the
 streamed problem.
 
-Churn, faults, pruning and the daemon of the reference launcher are not
-ported yet and refuse to run.
+``--churn N`` then replays N rounds of network churn, as the reference
+does: the problem is built with ``--spares`` spare rows (``n_max = n +
+spares``) and 2 more lanes of headroom, and each round joins a sensor at a
+random position (``streaming.add_sensor`` and ``serving.plan_add_sensor``
+on a query plan with ``spares + 4`` spare columns and ``N`` slack),
+absorbs 8 arrivals, refreshes, makes a sensor leave every other round
+(``remove_sensor``, ``plan_remove_sensor``, another refresh) and serves a
+kNN request on the repaired plan.  Two rounds warm up; the rest are timed.
+The final kNN request runs on the repaired plan.
+
+Faults, pruning and the daemon of the reference launcher are not ported
+yet and refuse to run.
 
 Examples (on the GPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --mode field \\
@@ -39,6 +49,10 @@ Examples (on the GPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --mode field \\
     --fields 16 --sensors 1000 --dim 2 --radius 0.0949 --sweeps 30 \\
     --queries 4096 --fusion knn conn --k 3 --stream 2048 --on_full evict
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode field \\
+    --fields 16 --sensors 1000 --dim 2 --radius 0.0949 --sweeps 30 \\
+    --queries 4096 --fusion knn conn --k 3 --stream 2048 --on_full evict \\
+    --churn 16 --spares 8
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
     --arch mamba2-370m --variant full --batch 4 --prompt_len 512 --gen 32
 """
@@ -63,9 +77,13 @@ from ..core import (
     init_state,
     make_batch_problem,
     make_serving_plan,
+    plan_add_sensor,
+    plan_remove_sensor,
+    plans,
     streaming,
     uniform_sensors,
 )
+from ..kernels import _build
 from ..kernels.ops import kernel_matvec
 from ..models import decode_step, init_cache, init_params, prefill
 
@@ -96,8 +114,10 @@ def build_problem(
     The fields are drawn from ``rng`` (default: a fresh
     ``np.random.default_rng(args.seed)``); pass one to go on drawing from it
     afterwards, as the launcher draws its arrival windows.  With
-    ``args.stream`` the neighborhoods get ``ceil(stream / n) + 4`` lanes of
-    headroom beyond the max degree, the reference's streaming capacity.
+    ``args.stream`` or ``args.churn`` the neighborhoods get ``ceil(stream /
+    n) + 4`` lanes of headroom beyond the max degree (2 more with churn, for
+    the joins' reciprocal lanes), the reference's capacity; with
+    ``args.churn`` the problem also holds ``args.spares`` spare rows.
     """
     dev = _device.resolve(args.device)
     b, n = args.fields, args.sensors
@@ -109,13 +129,14 @@ def build_problem(
     phase = rng.uniform(0, 2 * np.pi, size=(b, 1))
     ys = np.sin(np.pi * freq * pos[None, :, 0] + phase) + 0.3 * rng.normal(size=(b, n))
     topo = build_topology(pos, args.radius, device=dev)
-    if args.stream:
-        per_sensor = -(-max(args.stream, 1) // n) + 4
+    if args.stream or args.churn:
+        per_sensor = -(-max(args.stream, 1) // n) + 4 + (2 if args.churn else 0)
         d_max = int(topo.degrees.max()) + per_sensor
         topo = build_topology(pos, args.radius, d_max=d_max, device=dev)
     return make_batch_problem(
         topo, Kernel("rbf", gamma=args.gamma), ys, np.full((n,), args.lam, np.float32),
-        beta=args.beta, dtype=dtype, device=dev,
+        beta=args.beta, dtype=dtype, n_max=n + args.spares if args.churn else None,
+        device=dev,
     )
 
 
@@ -125,11 +146,11 @@ def serve_fields(args: argparse.Namespace) -> dict:
     Returns ``problem``, the trained ``state``, the query grid ``xq``, the
     (B, Q) answers under each ``--fusion`` rule, the timings and
     ``train_calls`` (``colored_sweep`` calls, the warm-up included).  With
-    ``--stream``, ``problem`` and ``state`` are the streamed and refreshed
-    ones the queries ran on, and ``stream`` holds what ``stream_fields``
-    returns.
+    ``--stream`` or ``--churn``, ``problem`` and ``state`` are the streamed,
+    churned and refreshed ones the queries ran on; ``stream`` holds what
+    ``stream_fields`` returns and ``churn`` what ``churn_fields`` returns.
     """
-    for flag in ("churn", "faults", "energy_tau"):
+    for flag in ("faults", "energy_tau"):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag} is not ported yet")
     dev = _device.resolve(args.device)
@@ -137,8 +158,9 @@ def serve_fields(args: argparse.Namespace) -> dict:
     rng = np.random.default_rng(args.seed)
     prob = build_problem(args, rng=rng)
     state0 = init_state(prob)
+    capacity = f" (capacity {prob.n})" if args.churn else ""
     print(
-        f"fields={b} sensors={n} D={prob.topology.d_max} "
+        f"fields={b} sensors={n}{capacity} D={prob.topology.d_max} "
         f"colors={prob.topology.n_colors} stream_capacity={prob.n_stream} device={dev}"
     )
 
@@ -154,9 +176,13 @@ def serve_fields(args: argparse.Namespace) -> dict:
     res = dict(train_s=train_s, train_calls=TIMED_CALLS)
     if args.stream:
         prob, state, res["stream"] = stream_fields(args, prob, state, rng, train_engine)
+    plan = None
+    if args.churn:
+        prob, state, res["churn"] = churn_fields(args, prob, state, rng, train_engine)
+        plan = res["churn"]["plan"]
     xq = query_grid(args, dev)
     res.update(problem=prob, state=state, xq=xq)
-    for rule, note, run in field_requests(args, prob, state, xq):
+    for rule, note, run in field_requests(args, prob, state, xq, plan=plan):
         out, dt = _timed(run, dev)
         print(
             f"query[{note}]: {args.queries} points x {b} fields in {dt * 1e3:.3f}ms "
@@ -238,6 +264,114 @@ def stream_fields(args: argparse.Namespace, prob, state, rng, engine: str):
     return prob, state, info
 
 
+CHURN_ARRIVALS = 8  # arrivals absorbed per churn round
+CHURN_WARM_ROUNDS = 2  # one join-only and one join + leave round, untimed
+
+
+def churn_fields(args: argparse.Namespace, prob, state, rng, engine: str):
+    """Replay ``args.churn`` rounds of joins and leaves, as the reference does.
+
+    Round i draws from ``rng`` a join at a uniform position in [-0.9, 0.9]^d
+    with N(0, 1) measurements (``add_sensor``; a joined sensor also enters
+    the query plan), then ``CHURN_ARRIVALS`` arrivals absorbed under
+    ``--on_full`` and ``--refresh_sweeps`` colored sweeps with ``engine``;
+    every odd round the oldest joined sensor (or, with none, a random base
+    sensor) leaves, followed by another refresh; then one kNN request of 64
+    points on the repaired plan with ``--engine``.  Every event donates.  The
+    first ``CHURN_WARM_ROUNDS`` rounds warm up; the others are timed.
+    Returns ``(problem, state, info)``: ``info`` has the counts (``joins``,
+    ``leaves``, ``join_drops``, ``absorbed``, ``dropped``, ``cell_overflows``,
+    ``skipped_couplings``, ``dropped_newest``), ``refresh_calls`` and
+    ``knn_calls`` (every round's), the repaired ``plan``, ``round_ms`` per
+    timed round, ``builds`` (CUDA library builds during the timed rounds)
+    and the live degree headroom.
+    """
+    dev = prob.device
+    b, n = args.fields, args.sensors
+    pos = prob.topology.positions[:n].cpu().numpy()
+    d = pos.shape[1]
+    plan = make_serving_plan(prob, k=args.k, spare=args.spares + 4, slack=args.churn)
+    xq = np.linspace(-0.9, 0.9, 64)[:, None].astype(np.float32)
+    xq = torch.as_tensor(np.concatenate([xq] + [np.zeros_like(xq)] * (d - 1), axis=1),
+                         device=dev)
+    stats = dict(joins=0, join_drops=0, leaves=0, cell_overflows=0, absorbed=0, dropped=0,
+                 skipped_couplings=0, dropped_newest=0, refresh_calls=0, knn_calls=0)
+    joined: list[int] = []
+    lifecycle = dict(repair_lambda=args.repair_lambda, donate=True)
+
+    def refresh(prob, state):
+        stats["refresh_calls"] += 1
+        return colored_sweep(prob, state, n_sweeps=args.refresh_sweeps, engine=engine)
+
+    def churn_round(prob, state, plan, i):
+        x = rng.uniform(-0.9, 0.9, size=d).astype(np.float32)
+        ys = rng.normal(size=b).astype(np.float32)
+        prob, state, rcpt = streaming.add_sensor(prob, state, x, ys, lam=args.lam, **lifecycle)
+        stats["skipped_couplings"] += int(rcpt.skipped_mask.sum())
+        stats["dropped_newest"] += int(rcpt.dropped_newest.sum())
+        if bool(rcpt.joined):  # a dropped join must not touch the query plan
+            plan, over = plan_add_sensor(plan, x, rcpt.slot)
+            joined.append(int(rcpt.slot))
+            stats["joins"] += 1
+            stats["cell_overflows"] += int(over)
+        else:
+            stats["join_drops"] += 1
+        a = CHURN_ARRIVALS
+        fs = rng.integers(0, b, size=a)
+        ss = rng.integers(0, n, size=a)
+        xs = (pos[ss] + 0.05 * rng.normal(size=(a, d))).astype(np.float32)
+        prob, state, rec = streaming.absorb_many(
+            prob, state, fs, ss, xs, rng.normal(size=a).astype(np.float32), donate=True,
+            on_full=args.on_full,
+        )
+        got = int(rec.absorbed.sum())
+        stats["absorbed"] += got
+        stats["dropped"] += a - got
+        state = refresh(prob, state)
+        if i % 2 == 1:  # every other round a sensor leaves
+            victim = joined.pop(0) if joined else int(rng.integers(0, n))
+            prob, state, removed = streaming.remove_sensor(prob, state, victim, **lifecycle)
+            plan = plan_remove_sensor(plan, victim)
+            stats["leaves"] += int(bool(removed))
+            state = refresh(prob, state)
+        stats["knn_calls"] += 1
+        fusion.fuse(prob, state, xq, "knn", k=args.k, engine=args.engine,
+                    plan=None if args.engine == "dense" else plan)
+        _sync(dev)
+        return prob, state, plan
+
+    warm = min(CHURN_WARM_ROUNDS, args.churn)
+    for i in range(warm):
+        prob, state, plan = churn_round(prob, state, plan, i)
+    builds0 = _build.builds
+    t0 = time.perf_counter()
+    for i in range(warm, args.churn):
+        prob, state, plan = churn_round(prob, state, plan, i)
+    round_ms = (time.perf_counter() - t0) / max(args.churn - warm, 1) * 1e3
+    builds = _build.builds - builds0
+    headroom = plans.degree_headroom(prob.topology.degrees, prob.alive[: prob.n],
+                                     prob.topology.d_max)
+    live = headroom[prob.alive[: prob.n]].cpu().numpy()
+    hr = dict(min=int(live.min()) if live.size else 0,
+              p50=int(np.median(live)) if live.size else 0, at_0=int((live == 0).sum()))
+    print(
+        f"churn: {args.churn} rounds ({stats['joins']} joins, {stats['leaves']} leaves, "
+        f"{stats['join_drops']} join-drops, {stats['absorbed']} absorbed / "
+        f"{stats['dropped']} dropped arrivals, {stats['cell_overflows']} cell overflows) "
+        f"{round_ms:.1f} ms/round warm; CUDA library builds after warmup: {builds} "
+        f"(want 0; the reference counts recompiles here)"
+    )
+    print(
+        f"churn receipts: {stats['skipped_couplings']} couplings skipped (lane-exhausted "
+        f"neighbors), {stats['dropped_newest']} newest arrivals dropped to anchor lanes; "
+        f"live degree headroom min={hr['min']} p50={hr['p50']} rows_at_0={hr['at_0']}"
+        + (" -- joins near 0-headroom rows lose couplings" if hr["at_0"] else "")
+    )
+    info = dict(stats, plan=plan, rounds=args.churn, timed_rounds=args.churn - warm,
+                round_ms=round_ms, builds=builds, headroom=hr)
+    return prob, state, info
+
+
 def query_grid(args: argparse.Namespace, dev: torch.device) -> torch.Tensor:
     """The launcher's (Q, dim) request grid: Q points on [-1, 1] along axis 0."""
     xq = np.linspace(-1, 1, args.queries)[:, None].astype(np.float32)
@@ -246,14 +380,19 @@ def query_grid(args: argparse.Namespace, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(xq, device=dev)
 
 
-def field_requests(args: argparse.Namespace, prob, state, xq) -> list:
+def field_requests(args: argparse.Namespace, prob, state, xq, plan=None) -> list:
     """(rule, note, request) per ``--fusion`` rule; a request answers the
     grid ``xq`` for all B fields.  Per-request work (plans, global
-    coefficients) that depends only on the trained state is done here."""
+    coefficients) that depends only on the trained state is done here.
+    ``plan``: the kNN query plan to serve on (default: one built now; a
+    churned problem passes its repaired plan)."""
     out = []
     for rule in args.fusion:
         if rule == "knn":
-            plan = None if args.engine == "dense" else make_serving_plan(prob, k=args.k)
+            if args.engine == "dense":
+                plan = None
+            elif plan is None:
+                plan = make_serving_plan(prob, k=args.k)
             cdt = None if args.engine == "dense" or args.serve_dtype == "f32" else args.serve_dtype
             run = functools.partial(
                 fusion.fuse, prob, state, xq, "knn", k=args.k, engine=args.engine, plan=plan,
@@ -363,8 +502,16 @@ def parser() -> argparse.ArgumentParser:
                          "(lm takes plan)")
     ap.add_argument("--serve_dtype", default="f32", choices=["f32", "bf16"],
                     help="anchor-table storage dtype for the plan/cuda kNN engines")
+    ap.add_argument("--repair_lambda", action="store_true",
+                    help="re-derive lambda_i = 0.01/|N_i|^2 for rows whose degree changes "
+                         "in churn events")
+    ap.add_argument("--churn", type=int, default=0,
+                    help="membership churn rounds to replay (symmetric joins/leaves with "
+                         "O(degree) event repairs)")
+    ap.add_argument("--spares", type=int, default=8,
+                    help="spare sensor rows reserved for --churn joins (n_max = sensors + "
+                         "spares; the recolor pool is 2x this)")
     # reference flags whose features are not ported yet: refused when set
-    ap.add_argument("--churn", type=int, default=0, help="not ported yet")
     ap.add_argument("--faults", default="", help="not ported yet")
     ap.add_argument("--energy_tau", type=float, default=0.0, help="not ported yet")
     return ap

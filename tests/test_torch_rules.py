@@ -56,6 +56,7 @@ ENTRY_POINTS = {
         {"z": np.zeros(3), "coef": np.zeros((2, 2))}),
     "serve.main": lambda: serve.main(["--fields", "2", "--sensors", "8"]),
     "serve.main stream": lambda: serve.main(["--fields", "2", "--sensors", "8", "--stream", "4"]),
+    "serve.main churn": lambda: serve.main(["--fields", "2", "--sensors", "8", "--churn", "2"]),
     "models.init_params": lambda: models.init_params(get_config("mamba2-370m", variant="smoke")),
     "serve.main lm": lambda: serve.main(["--mode", "lm", "--variant", "smoke", "--batch", "1",
                                          "--prompt_len", "4", "--gen", "1"]),
@@ -125,9 +126,26 @@ def test_missing_nvcc_raises_and_names_it(monkeypatch, tmp_path):
         _build.build_all()
 
 
-@pytest.mark.parametrize("flag", [["--churn", "2"],
+@pytest.mark.parametrize("flag", [["--churn", "2", "--faults", "drop=0.1"],
                                   ["--faults", "drop=0.1"], ["--energy_tau", "0.1"],
                                   ["--mode", "daemon"]])
 def test_unported_launcher_features_refuse(flag):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         serve.main(["--device", "cpu", "--fields", "2", "--sensors", "8"] + flag)
+
+
+def test_lifecycle_entry_points_stay_on_the_problems_device():
+    """add_sensor, remove_sensor and robust_sweep take their device from the
+    problem: every tensor they return lies where the problem lies."""
+    pos = np.random.default_rng(0).uniform(-1, 1, size=(10, 1)).astype(np.float32)
+    topo = tr.build_topology(pos, 0.8, d_max=9, n_max=12, device="cpu")
+    prob = tr.make_batch_problem(topo, tr.Kernel(), np.zeros((2, 10)),
+                                 np.full((10,), 0.1, np.float32), device="cpu")
+    state = tr.init_state(prob)
+    prob, state, rec = tr.add_sensor(prob, state, np.zeros(1), np.ones(2))
+    prob, state, ok = tr.remove_sensor(prob, state, 3)
+    out = tr.robust_sweep(prob, state, np.ones(prob.n, bool), n_sweeps=1, engine="cuda")
+    tensors = [v for v in rec] + [ok, out.z, out.coef, state.z, state.coef]
+    tensors += [v for v in vars(prob).values() if isinstance(v, torch.Tensor)]
+    assert bool(rec.joined) and bool(ok)
+    assert all(t.device.type == "cpu" for t in tensors)
