@@ -72,6 +72,24 @@ Phases, one line or more each; any failure raises and exits non-zero:
              against colored_sweep, and a 5-sweep transient death trace (5
              color_sweep launches, dead rows untouched, z 2e-4 and coef 2e-2
              from the plan engine) with its refactor and launch times;
+  3d. main-faults the port's launcher with --refresh_sweeps 5 and --faults,
+             once with bursty links (drop=0.1,burst=0.05:0.4:0.5) and once
+             with crashes (drop=0.1,crash=0.01:0.25), launch counters set to
+             0 before and read after: color_step once per watchdog round
+             (crash-free: one launch of 5 sweeps with a fresh 3-D delivery
+             mask) or once per sweep (crashes, through robust_sweep),
+             knn_fuse 2, kernel_matvec 2; the seeded rounds replayed
+             bitwise, clear of the watchdog's divergence ratio; the same run
+             on the plain engines with a generator of the same seed (receipt
+             integers equal, z 2e-4, coef 2e-2, kNN 2e-4, conn 2e-5); then,
+             on the launcher's trained problem: drop=0 bitwise colored_sweep,
+             drop=1 z frozen bitwise, no library build and one launch per
+             call over a rate grid; the sampler's statistics over (30, n+1,
+             D) lanes; the NaN ladder rolled back bitwise in memory and on
+             disk; save_train/restore_train bitwise with their times; the
+             reference's acceptance (kNN-fused RMSE at 10% drops within 2x
+             of fault-free); the single-field serial engines on field 0; and
+             a round's time split;
   4. main-lm the port's launcher in LM mode: mamba2-370m at full width in
              its own bf16, random weights from seed 0, a 4 x 512 prompt
              and 32 greedy tokens, with every launch counter set to 0
@@ -82,9 +100,9 @@ Phases, one line or more each; any failure raises and exits non-zero:
              final SSM state and 4 teacher-forced decode steps, with an
              f64 run of the plain route as the witness;
   5. report  the kernels JSON line (``launches``: the sum over the field,
-             stream, churn and LM paths' runs, each path's count beside it), the
-             card's name and power limit, and the final {"ok": true, ...}
-             line.
+             stream, churn, faults and LM paths' runs, each path's count
+             beside it), the card's name and power limit, and the final
+             {"ok": true, ...} line.
 
 Tolerances are the reference's own.  Per color step, on identical inputs:
 color_step z 1e-5 and coef 1e-3 in f32 (tests/test_scatter_plan.py),
@@ -120,6 +138,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1426,6 +1445,457 @@ def run_lifecycle(torch, mods) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3d: training under unreliable links.
+# ---------------------------------------------------------------------------
+
+FAULT_SPECS = {
+    "bursty": "drop=0.1,burst=0.05:0.4:0.5",  # the reference README's example
+    "crash": "drop=0.1,crash=0.01:0.25",  # the reference parse_fault_spec's example
+}
+FAULT_ROUND = 5  # --refresh_sweeps: sweeps per watchdog round
+FAULT_RATES = (0.0, 0.05, 0.1, 0.3, 0.6, 0.9)  # the identities' rate grid
+SAMPLER_SWEEPS = 30  # the sampler's statistics over (30, n+1, D) lanes
+# the reference's acceptance: watch to tol 1e-3 in up to 40 rounds of 5
+# sweeps, and the kNN-fused (k = 3) RMSE at 10% drops within 2x of
+# fault-free (benchmarks/fault_bench.py:20-21, 153-154)
+ACCEPT_TOL, ACCEPT_ROUNDS, ACCEPT_DROP, ACCEPT_RATIO = 1e-3, 40, 0.1, 2.0
+SERIAL_SWEEPS = 2
+RECEIPT_INTS = ("rounds", "sweeps", "retries", "refactorized", "rolled_back")
+
+
+def faults_args(spec: str):
+    from repro_torch.launch import serve
+
+    argv = main_args()[0] + ["--refresh_sweeps", str(FAULT_ROUND), "--faults", spec]
+    return argv, serve.parser().parse_args(argv)
+
+
+def replay_rounds(torch, prob, spec: str, seed: int, rounds: int):
+    """The launcher's supervised rounds replayed with a generator of the
+    same seed (for a run with no retry, refactorization or rollback):
+    (the smallest distance of a round's per-field norm growth from the
+    watchdog's divergence ratio, the largest growth, the final state)."""
+    from repro_torch.core import faults, init_state, monitor, weighted_norm_sq
+
+    dev = prob.device
+    model = faults.parse_fault_spec(spec, device=dev)
+    g = _gen(torch, dev, seed)
+    ratio = monitor.WatchdogConfig().divergence_ratio
+    state = init_state(prob)
+    norm = weighted_norm_sq(prob, state)
+    margin, growth = float("inf"), 0.0
+    for _ in range(rounds):
+        state = faults.faulty_sweep(prob, state, model, g, FAULT_ROUND, engine="cuda")
+        new = weighted_norm_sq(prob, state)
+        margin = min(margin, float((new / norm - ratio).abs().min()))
+        growth = max(growth, float((new / norm).max()))
+        norm = new
+    return margin, growth, state
+
+
+def run_faults_launcher(torch, mods, name: str) -> tuple[dict, dict]:
+    """The launcher under --faults, launches counted from 0: color_step once
+    per round (crash-free) or once per sweep (crash model), the requests'
+    kernels TIMED_CALLS each; then the same run on the plain engines with a
+    generator of the same seed (the same masks): receipt integers equal,
+    states at the long-chain bound, answers as the main phase holds them.
+    Returns (launches, readings)."""
+    from repro_torch.launch import serve
+
+    argv, args = faults_args(FAULT_SPECS[name])
+    print("main-faults: python -m repro_torch.launch.serve " + " ".join(argv))
+    for mod in mods.values():
+        mod.launches = 0
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = {key: mod.launches for key, mod in mods.items()}
+    rec = res["watchdog"]
+    crash = name == "crash"
+    per = rec.sweeps if crash else rec.rounds
+    print(f"main-faults {name}: kernel launches " + json.dumps(launches)
+          + f" ({rec.rounds} rounds, {rec.sweeps} sweeps: one color_sweep launch per "
+          + ("sweep)" if crash else "round)"))
+    expected = {"color_step": per, "knn_fuse": serve.TIMED_CALLS,
+                "kernel_matvec": serve.TIMED_CALLS, "ssd_intra": 0, "rbf_gram": 0}
+    check(launches == expected,
+          f"main-faults {name}: kernel launches {launches}, expected {expected}")
+    check(rec.sweeps == rec.rounds * FAULT_ROUND and res["train_calls"] == rec.rounds,
+          f"main-faults {name}: receipt {rec.to_json()} against {res['train_calls']} calls")
+    b, q = args.fields, args.queries
+    for key in ("knn", "conn"):
+        check(res[key].shape == (b, q) and bool(torch.isfinite(res[key]).all()),
+              f"main-faults {name} {key}: shape {tuple(res[key].shape)} or non-finite values")
+    # the watchdog's decisions are thresholds: the run must keep clear of them
+    check(rec.retries == 0 and rec.refactorized == 0 and not rec.rolled_back,
+          f"main-faults {name}: the watchdog acted: {rec.to_json()}")
+    margin, growth, replayed = replay_rounds(torch, res["problem"], FAULT_SPECS[name],
+                                             args.seed + 1, rec.rounds)
+    check(torch.equal(replayed.z, res["state"].z) and torch.equal(replayed.coef,
+                                                                  res["state"].coef),
+          f"main-faults {name}: a replay with the same seed differs from the launcher's run")
+    check(margin > 1e-3, f"main-faults {name}: a round's norm growth is {margin:.3g} from "
+          f"the divergence ratio")
+    print(f"main-faults {name}: the seeded rounds replay bitwise; largest per-round norm "
+          f"growth {growth:.6g}, nearest the divergence ratio by {margin:.3g}")
+
+    plain = serve.main(argv + ["--engine", "plan"])
+    torch.cuda.synchronize()
+    pr = plain["watchdog"]
+    for key in RECEIPT_INTS:
+        check(getattr(pr, key) == getattr(rec, key),
+              f"main-faults {name}: receipt {key} {getattr(rec, key)} != the plain "
+              f"replay's {getattr(pr, key)}")
+    check(np.array_equal(pr.converged, rec.converged)
+          and np.array_equal(pr.diverged, rec.diverged),
+          f"main-faults {name}: per-field flags differ from the plain replay")
+    state, ps = res["state"], plain["state"]
+    err_z, err_c = max_err(state.z[:, :-1], ps.z[:, :-1]), max_err(state.coef, ps.coef)
+    err_knn, err_conn = max_err(res["knn"], plain["knn"]), max_err(res["conn"], plain["conn"])
+    print(f"main-faults {name}: vs the plain engines' replay: receipt integers equal; max "
+          f"|dz| {err_z:.3g}, |dcoef| {err_c:.3g}, knn {err_knn:.3g}, conn {err_conn:.3g}; "
+          f"max residual / tol {float(np.max(rec.residual)) / args.watch_tol:.3g}")
+    check(err_z <= STREAM_Z_TOL and err_c <= STREAM_COEF_TOL,
+          f"main-faults {name}: supervised state differs from the plain engines'")
+    check(err_knn <= 2e-4, f"main-faults {name}: kNN answers differ from the plain engines'")
+    check(err_conn <= 2e-5, f"main-faults {name}: conn answers differ from the plain engines'")
+    readings = dict(receipt=rec.to_json(), growth_max=growth, threshold_margin=margin,
+                    train_s=res["train_s"],
+                    round_ms=res["train_s"] / rec.rounds * 1e3,
+                    plain_train_s=plain["train_s"], err_z=err_z, err_coef=err_c,
+                    err_knn=err_knn, err_conn=err_conn, knn_request_ms=res["knn_s"] * 1e3,
+                    conn_request_ms=res["conn_s"] * 1e3)
+    return launches, readings
+
+
+def _gen(torch, dev, seed: int):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def check_fault_identities(torch, mods, prob, state) -> dict:
+    """drop=0 is colored_sweep bitwise, drop=1 freezes z bitwise while coef
+    moves, and the rate grid builds nothing and launches once per call."""
+    from repro_torch.core import colored_sweep, faults
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+
+    dev = prob.device
+    model = lambda p: faults.make_fault_model(p, device=dev)  # noqa: E731
+    a = faults.faulty_sweep(prob, state, model(0.0), _gen(torch, dev, 7), FAULT_ROUND,
+                            engine="cuda")
+    c = colored_sweep(prob, state, FAULT_ROUND, engine="cuda")
+    check(torch.equal(a.z, c.z) and torch.equal(a.coef, c.coef),
+          "main-faults identities: drop=0 differs from colored_sweep")
+    o = faults.faulty_sweep(prob, state, model(1.0), _gen(torch, dev, 7), FAULT_ROUND,
+                            engine="cuda")
+    check(torch.equal(o.z, state.z) and not torch.equal(o.coef, state.coef),
+          "main-faults identities: drop=1 moved z or froze coef")
+    builds0 = _build.builds
+    per_call = []
+    for p in FAULT_RATES:
+        mods["color_step"].launches = 0
+        faults.faulty_sweep(prob, state, model(p), _gen(torch, dev, 7), FAULT_ROUND,
+                            engine="cuda")
+        serve._sync(dev)
+        per_call.append(mods["color_step"].launches)
+    built = _build.builds - builds0
+    check(built == 0 and per_call == [1] * len(FAULT_RATES),
+          f"main-faults identities: {built} library builds, launches per call {per_call}")
+    print(f"main-faults identities (cuda engine, {FAULT_ROUND} sweeps): drop=0 == "
+          f"colored_sweep bitwise; drop=1 leaves z bitwise and moves coef; rates "
+          f"{list(FAULT_RATES)}: {built} CUDA library builds, launches per call {per_call}")
+    return dict(grid_builds=built, grid_launches=per_call)
+
+
+def check_sampler(torch, prob) -> dict:
+    """The fault process's statistics over (SAMPLER_SWEEPS, n+1, D) lanes, to
+    the reference's thresholds (tests/test_faults.py:140-203) and the closed
+    forms: i.i.d. and stationary delivered fractions within 0.01, bursts
+    (P(drop | dropped last sweep) > 1.5 x the marginal), monotone coupling
+    under one seed, the crash chain's up share after burn-in within 0.02 of
+    restart / (crash + restart)."""
+    from repro_torch.core import faults
+
+    dev = prob.device
+    lanes, t = tuple(prob.nbr_idx.shape), SAMPLER_SWEEPS
+    mk = lambda *a, **k: faults.make_fault_model(*a, device=dev, **k)  # noqa: E731
+    masks = lambda m, seed: faults.link_masks(m, _gen(torch, dev, seed), t, lanes)  # noqa: E731
+    out = {}
+    low, high = masks(mk(0.1), 11), masks(mk(0.4), 11)
+    for p, m in ((0.1, low), (0.4, high)):
+        out[f"iid_{p}"] = got = float(m.double().mean())
+        check(abs(got - (1 - p)) <= 0.01, f"main-faults sampler: i.i.d. p={p} delivered {got}")
+    out["coupling_violations"] = bad = int((high & ~low).sum())
+    check(bad == 0, f"main-faults sampler: {bad} lanes delivered at p=0.4 but not at 0.1")
+    for label, drop, burst in (("readme", 0.1, (0.05, 0.4, 0.5)),
+                               ("reference_test", 0.02, (0.05, 0.3, 0.7))):
+        m = masks(mk(drop, burst=burst), 12)
+        pi_bad = burst[0] / (burst[0] + burst[1])
+        want = (1 - drop) * (1 - pi_bad * burst[2])
+        got = float(m.double().mean())
+        dropped = ~m
+        marginal = float(dropped.double().mean())
+        cond = float(dropped[1:][dropped[:-1]].double().mean())
+        out[f"bursty_{label}"] = dict(delivered=got, closed_form=want, marginal_drop=marginal,
+                                      drop_after_drop=cond)
+        check(abs(got - want) <= 0.01,
+              f"main-faults sampler: {label} stationary delivered {got}, closed form {want}")
+        if label == "reference_test":
+            check(cond > 1.5 * marginal, f"main-faults sampler: bursts {cond} vs {marginal}")
+    trace = faults.crash_schedule(mk(0.0, crash=(0.3, 0.5)), _gen(torch, dev, 17), t, prob.n)
+    up = float(trace[10:].double().mean())
+    came_back = bool((~trace[:-1] & trace[1:]).any())
+    out["crash_up_share"] = up
+    check(abs(up - 0.5 / 0.8) <= 0.02 and came_back,
+          f"main-faults sampler: crash chain up share {up} (want {0.5 / 0.8}), "
+          f"restarts {came_back}")
+    print("main-faults sampler (" + " x ".join(map(str, (t,) + lanes)) + " lanes): "
+          + json.dumps(out))
+    return out
+
+
+def _bits(torch, t):
+    """The tensor's bytes as integers: a bitwise comparison NaN cannot defeat."""
+    return t.contiguous().view({4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def run_ladder(torch, prob, state) -> dict:
+    """From a NaN-poisoned state the watchdog retries 3 times, refactorizes
+    once and rolls back: the entry state and factors come back bitwise, once
+    from the in-memory snapshot and once through a checkpoint directory."""
+    from repro_torch.core import SNTrainState, faults, monitor
+    from repro_torch.launch import serve
+
+    dev = prob.device
+    z = state.z.clone()
+    z[0, 0] = float("nan")
+    bad = SNTrainState(z=z, coef=state.coef.clone())
+    cfg = monitor.WatchdogConfig(max_rounds=14)
+    model = faults.make_fault_model(0.05, device=dev)
+    out = {}
+    for where in ("memory", "disk"):
+        with tempfile.TemporaryDirectory() as d:
+            serve._sync(dev)
+            t0 = time.perf_counter()
+            p2, s2, rec = monitor.watch_sweeps(
+                prob, bad, model=model, generator=_gen(torch, dev, 3), engine="cuda",
+                config=cfg, snapshot_dir=None if where == "memory" else os.path.join(d, "wd"))
+            serve._sync(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+        check(rec.retries == cfg.max_retries and rec.refactorized == 1 and rec.rolled_back,
+              f"main-faults ladder ({where}): receipt {rec.to_json()}")
+        check(torch.equal(_bits(torch, s2.z), _bits(torch, bad.z))
+              and torch.equal(_bits(torch, s2.coef), _bits(torch, bad.coef))
+              and torch.equal(p2.chol, prob.chol),
+              f"main-faults ladder ({where}): the entry state or factors not restored bitwise")
+        out[where] = dict(ms=ms, rounds=rec.rounds, sweeps=rec.sweeps)
+        print(f"main-faults ladder ({where}): {monitor.format_receipt(rec)}; entry state "
+              f"and factors restored bitwise (NaN included) in {ms:.1f} ms")
+    return out
+
+
+def run_checkpoint(torch, prob, state) -> dict:
+    """save_train / restore_train of the full problem and state: every leaf
+    back bitwise, on its device in its dtype; save and restore times."""
+    from repro_torch import checkpoint
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import serve
+
+    dev = prob.device
+    save_ms, restore_ms = [], []
+    with tempfile.TemporaryDirectory() as d:
+        for step in range(3):
+            serve._sync(dev)
+            t0 = time.perf_counter()
+            checkpoint.save_train(d, step, prob, state)
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            p2, s2 = checkpoint.restore_train(d, step, prob, state)
+            serve._sync(dev)
+            restore_ms.append((time.perf_counter() - t0) * 1e3)
+        nbytes = os.path.getsize(os.path.join(d, "step_00000000", "arrays.npz"))
+        check(checkpoint.latest_step(d) == 2, "main-faults checkpoint: latest_step")
+    want = list(ckpt._items({"problem": prob, "state": state}))
+    got = list(ckpt._items({"problem": p2, "state": s2}))
+    check(len(want) == len(got), "main-faults checkpoint: leaf count")
+    for (path, a), (_, b) in zip(want, got):
+        check(a.device == b.device and a.dtype == b.dtype and a.shape == b.shape
+              and torch.equal(a, b), f"main-faults checkpoint: {path[:-1]} not restored bitwise")
+    out = dict(bytes=nbytes, leaves=len(want), save_ms=save_ms, restore_ms=restore_ms)
+    print(f"main-faults checkpoint: {len(want)} leaves, {nbytes} bytes of npz, bitwise round "
+          f"trip on {dev}; save_train {np.median(save_ms):.1f} ms, restore_train "
+          f"{np.median(restore_ms):.1f} ms (median of 3)")
+    return out
+
+
+def launcher_truth(torch, args, dev):
+    """The launcher's noiseless fields at the sensor sites: its seeded
+    freq/phase draws (serve.build_problem) without the noise."""
+    from repro_torch.core import uniform_sensors
+
+    rng = np.random.default_rng(args.seed)
+    pos = uniform_sensors(args.sensors, d=args.dim, seed=args.seed)
+    freq = rng.uniform(0.5, 2.0, size=(args.fields, 1))
+    phase = rng.uniform(0, 2 * np.pi, size=(args.fields, 1))
+    return torch.as_tensor(np.sin(np.pi * freq * pos[None, :, 0] + phase), device=dev)
+
+
+def run_acceptance(torch, prob, args) -> dict:
+    """The reference's acceptance on the launcher's problem: watched to tol
+    1e-3 in up to 40 rounds of 5 sweeps, fault-free and at 10% drops, the
+    kNN-fused (k = 3) RMSE at the sensor sites against the noiseless
+    fields within 2x of fault-free."""
+    from repro_torch.core import faults, fusion, init_state, make_serving_plan, monitor
+    from repro_torch.launch import serve
+
+    dev = prob.device
+    truth = launcher_truth(torch, args, dev)
+    sites = prob.topology.positions[: args.sensors]
+    plan = make_serving_plan(prob, k=3)
+    cfg = monitor.WatchdogConfig(sweeps_per_round=FAULT_ROUND, tol=ACCEPT_TOL,
+                                 max_rounds=ACCEPT_ROUNDS)
+    out = {}
+    for drop in (0.0, ACCEPT_DROP):
+        serve._sync(dev)
+        t0 = time.perf_counter()
+        p2, s2, rec = monitor.watch_sweeps(
+            prob, init_state(prob), model=faults.make_fault_model(drop, device=dev),
+            generator=_gen(torch, dev, 1), engine="cuda", config=cfg)
+        serve._sync(dev)
+        dt = time.perf_counter() - t0
+        fused = fusion.fuse(p2, s2, sites, "knn", k=3, engine="cuda", plan=plan)
+        rmse = torch.sqrt(torch.mean((fused.double() - truth) ** 2, dim=-1)).cpu().numpy()
+        check(bool(np.isfinite(rmse).all()) and not rec.rolled_back,
+              f"main-faults acceptance drop={drop}: {rec.to_json()}")
+        out[str(drop)] = dict(rmse_mean=float(rmse.mean()), rmse_max=float(rmse.max()),
+                              sweeps=rec.sweeps, rounds=rec.rounds,
+                              converged=int(rec.converged.sum()), retries=rec.retries,
+                              seconds=dt, ms_per_sweep=dt / rec.sweeps * 1e3)
+    ratio = out[str(ACCEPT_DROP)]["rmse_mean"] / out["0.0"]["rmse_mean"]
+    out["ratio"] = ratio
+    print(f"main-faults acceptance: kNN-fused RMSE at the sensor sites, fault-free "
+          f"{out['0.0']['rmse_mean']:.5g} in {out['0.0']['sweeps']} sweeps "
+          f"({out['0.0']['converged']}/{args.fields} converged), drop={ACCEPT_DROP} "
+          f"{out[str(ACCEPT_DROP)]['rmse_mean']:.5g} in {out[str(ACCEPT_DROP)]['sweeps']} "
+          f"sweeps ({out[str(ACCEPT_DROP)]['converged']}/{args.fields}); ratio {ratio:.4g} "
+          f"(acceptance <= {ACCEPT_RATIO})")
+    check(ratio <= ACCEPT_RATIO, f"main-faults acceptance: RMSE ratio {ratio}")
+    return out
+
+
+def run_serial_engines(torch, prob, state) -> dict:
+    """The single-field serial engines on field 0, SERIAL_SWEEPS sweeps each:
+    all-alive links and unit weights equal serial_sweep (z 1e-5, coef 1e-3),
+    random orderings and weighted sweeps Fejer monotone to the reference's
+    slack (tests/test_sn_train.py), and ms per sweep."""
+    from repro_torch.core import (field_view, random_sweep, robust_sweep_links, serial_sweep,
+                                  weighted_norm_sq, weighted_norm_sq_hetero, weighted_sweep)
+    from repro_torch.launch import serve
+
+    dev = prob.device
+    pv, sv = field_view(prob, state, 0)
+    n, d = pv.n, pv.nbr_idx.shape[1]
+    ms = {}
+
+    def timed(name, fn):
+        serve._sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        serve._sync(dev)
+        ms[name] = (time.perf_counter() - t0) / SERIAL_SWEEPS * 1e3
+        return out
+
+    t = SERIAL_SWEEPS
+    ser = timed("serial_sweep", lambda: serial_sweep(pv, sv, t))
+    rnd = timed("random_sweep", lambda: random_sweep(pv, sv, _gen(torch, dev, 5), t))
+    ones = torch.ones((t, n, d), dtype=torch.bool, device=dev)
+    links = timed("robust_sweep_links", lambda: robust_sweep_links(pv, sv, ones, t))
+    trace = torch.as_tensor(np.random.default_rng(19).random((t, n, d)) > 0.2, device=dev)
+    lossy = timed("robust_sweep_links_20pct", lambda: robust_sweep_links(pv, sv, trace, t))
+    unit = timed("weighted_sweep", lambda: weighted_sweep(pv, sv, torch.ones(n, device=dev), t))
+    errs = {}
+    for name, got in (("links", links), ("weights", unit)):
+        errs[name] = (max_err(got.z, ser.z), max_err(got.coef, ser.coef))
+        check(errs[name][0] <= 1e-5 and errs[name][1] <= 1e-3,
+              f"main-faults serial: {name} vs serial_sweep |dz| {errs[name][0]:.3g}, "
+              f"|dcoef| {errs[name][1]:.3g}")
+    check(all(bool(torch.isfinite(s.z).all()) for s in (rnd, lossy)),
+          "main-faults serial: non-finite random or lossy-link sweep")
+    fejer = lambda cur, prev: cur <= prev * 1.03 + 1e-5  # noqa: E731
+    norms = [float(weighted_norm_sq(pv, sv)), float(weighted_norm_sq(pv, rnd))]
+    check(fejer(norms[1], norms[0]), f"main-faults serial: random_sweep norm {norms}")
+    w = torch.as_tensor(np.random.default_rng(0).uniform(0.2, 5.0, n), dtype=sv.z.dtype,
+                        device=dev)
+    st, hetero = sv, [float(weighted_norm_sq_hetero(pv, sv, w))]
+    for _ in range(t):
+        st = weighted_sweep(pv, st, w, 1)
+        hetero.append(float(weighted_norm_sq_hetero(pv, st, w)))
+    check(all(fejer(c, p) for p, c in zip(hetero, hetero[1:])),
+          f"main-faults serial: reweighted norm grew {hetero}")
+    print(f"main-faults serial engines (field 0, n={n}, D={d}, {t} sweeps): all-alive "
+          f"links vs serial |dz| {errs['links'][0]:.3g}, unit weights |dz| "
+          f"{errs['weights'][0]:.3g}; random_sweep norm {norms[0]:.6g} -> {norms[1]:.6g}; "
+          f"reweighted norm {[round(v, 6) for v in hetero]}; ms per sweep " + json.dumps(ms))
+    return dict(ms_per_sweep=ms, err_links=errs["links"], err_weights=errs["weights"],
+                random_norms=norms, hetero_norms=hetero)
+
+
+def time_fault_round(torch, prob, state) -> dict:
+    """One crash-free round's parts (sampling, one 5-sweep color_sweep launch
+    with the masks, the metrics and their one host read) and one crash round
+    (its 5 refactors and 5 launches), by CUDA events."""
+    from repro_torch.core import colored_sweep, faults, monitor, sn_train
+
+    dev = prob.device
+    free = faults.parse_fault_spec(FAULT_SPECS["bursty"], device=dev)
+    crash = faults.parse_fault_spec(FAULT_SPECS["crash"], device=dev)
+    g = _gen(torch, dev, 29)
+    deliv, _ = faults.sample_faults(free, g, FAULT_ROUND, prob)
+    cand = colored_sweep(prob, state, FAULT_ROUND, engine="cuda", delivered=deliv)
+    deliv_c, alive_tn = faults.sample_faults(crash, g, FAULT_ROUND, prob)
+    alive_row = prob.alive & torch.cat([alive_tn[0], torch.ones(1, dtype=torch.bool,
+                                                                device=dev)])
+    gram_eff, chol_eff = sn_train._masked_factors(prob, prob.nbr_mask, prob.gram, alive_row)
+    return dict(
+        round_ms=cuda_ms(lambda: faults.faulty_sweep(prob, state, free, g, FAULT_ROUND,
+                                                     engine="cuda"), reps=10),
+        sample_ms=cuda_ms(lambda: faults.sample_faults(free, g, FAULT_ROUND, prob), reps=10),
+        sweep_launch_ms=cuda_ms(lambda: colored_sweep(prob, state, FAULT_ROUND, engine="cuda",
+                                                      delivered=deliv), reps=10),
+        metrics_read_ms=cuda_ms(lambda: monitor._host(monitor._round_metrics(prob, state,
+                                                                             cand)), reps=10),
+        crash_round_ms=cuda_ms(lambda: faults._faulty(prob, state, crash, deliv_c, alive_tn,
+                                                      FAULT_ROUND, "cuda"), reps=5, warmup=1),
+        crash_sample_ms=cuda_ms(lambda: faults.sample_faults(crash, g, FAULT_ROUND, prob),
+                                reps=10),
+        refactor_ms=cuda_ms(lambda: sn_train._masked_factors(prob, prob.nbr_mask, prob.gram,
+                                                             alive_row), reps=10),
+        one_sweep_launch_ms=cuda_ms(lambda: sn_train._colored_core(
+            prob, prob.nbr_mask, gram_eff, chol_eff, state.z, state.coef, 1, "cuda",
+            alive=alive_row, delivered=deliv_c[:1]), reps=10),
+    )
+
+
+def run_faults_checks(torch, mods) -> dict:
+    """Phase 3d after the launcher runs, on the launcher's problem and its
+    30-sweep trained state."""
+    from repro_torch.core import colored_sweep, init_state
+    from repro_torch.launch import serve
+
+    _, args = faults_args(FAULT_SPECS["bursty"])
+    prob = serve.build_problem(args)
+    state = colored_sweep(prob, init_state(prob), n_sweeps=args.sweeps, engine="cuda")
+    out = dict(identities=check_fault_identities(torch, mods, prob, state),
+               sampler=check_sampler(torch, prob),
+               ladder=run_ladder(torch, prob, state),
+               checkpoint=run_checkpoint(torch, prob, state),
+               acceptance=run_acceptance(torch, prob, args),
+               serial=run_serial_engines(torch, prob, state),
+               round=time_fault_round(torch, prob, state))
+    print("main-faults round split: " + json.dumps(out["round"]))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: the LM path.
 # ---------------------------------------------------------------------------
 
@@ -1621,6 +2091,16 @@ def run() -> int:
     churn_readings["lifecycle"] = run_lifecycle(torch, mods)
     print("main-churn: " + json.dumps(churn_readings))
 
+    # 3d. training under unreliable links through the port's launcher -------
+    t0 = time.perf_counter()
+    fault_launches, fault_readings = {}, {}
+    for name in FAULT_SPECS:
+        got, fault_readings[name] = run_faults_launcher(torch, mods, name)
+        fault_launches = {key: fault_launches.get(key, 0) + v for key, v in got.items()}
+    fault_readings.update(run_faults_checks(torch, mods))
+    fault_readings["phase_s"] = time.perf_counter() - t0
+    print("main-faults: " + json.dumps(fault_readings))
+
     # 4. the LM path through the port's launcher -----------------------------
     print("main-lm: python -m repro_torch.launch.serve " + " ".join(LM_ARGV))
     for mod in mods.values():
@@ -1648,7 +2128,7 @@ def run() -> int:
     lm_readings = compare_lm(torch, lm)
     # each path's launches, counted from 0 around its run (rbf_gram: on none)
     by_path = {"field": launches, "stream": stream_launches, "churn": churn_launches,
-               "lm": lm_launches}
+               "faults": fault_launches, "lm": lm_launches}
 
     # 5. report --------------------------------------------------------------
     meta = {

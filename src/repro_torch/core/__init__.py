@@ -2,8 +2,10 @@
 
 from . import (
     centralized,
+    faults,
     fusion,
     kernels_math,
+    monitor,
     plans,
     serving,
     sn_train,
@@ -11,7 +13,9 @@ from . import (
     topology,
 )
 from .centralized import KRRModel, fit_krr, predict
+from .faults import FaultModel, faulty_sweep, make_fault_model
 from .kernels_math import Kernel
+from .monitor import WatchdogConfig, WatchdogReceipt, watch_sweeps
 from .plans import LifecycleLayout
 from .serving import (
     ServingPlan,
@@ -30,9 +34,13 @@ from .sn_train import (
     local_only,
     make_batch_problem,
     make_problem,
+    random_sweep,
     robust_sweep,
+    robust_sweep_links,
     serial_sweep,
     weighted_norm_sq,
+    weighted_norm_sq_hetero,
+    weighted_sweep,
 )
 from .streaming import (
     AbsorbReceipt,

@@ -1,7 +1,9 @@
 """SN-Train: distributed kernel regression by alternating projections.
 
 Port of ``repro.core.sn_train`` (the build, the serial and colored
-engines, the sensor-level robust engine ``robust_sweep``, ``field_view``).
+engines, the sensor-level robust engine ``robust_sweep``, ``field_view``,
+and the single-field serial engines ``random_sweep``,
+``robust_sweep_links`` and ``weighted_sweep``).
 Each sensor ``s`` keeps a local function
 ``f_s = sum_{j in N_s} c_{s,j} K(., x_j)`` and the network shares a message
 vector ``z``.  One projection at s
@@ -377,9 +379,10 @@ def _sensor_update(z, coef_s, nbr_idx_s, nbr_mask_s, gram_s, chol_s, lam_s):
 
 def _serial_core(
     nbr_idx, nbr_mask, gram, chol, lam_pad, sentinel, z, coef, n_sweeps,
-    alive_row, alive_slot, delivered=None,
+    alive_row, alive_slot, delivered=None, orders=None,
 ):
-    """Sweeps of sensors 0..n-1 in order over explicit leading field axes.
+    """Sweeps over explicit leading field axes, sensors 0..n-1 in order
+    (``orders``: one host sequence of sensor ids per sweep instead).
 
     A dead sensor neither updates nor is heard from; an undelivered lane's
     message write never lands (its slot keeps its last value), while the
@@ -388,7 +391,7 @@ def _serial_core(
     z, coef = z.clone(), coef.clone()
     n = nbr_idx.shape[0] - 1
     for t in range(n_sweeps):
-        for s in range(n):
+        for s in range(n) if orders is None else orders[t]:
             idx = nbr_idx[s].long()
             mask_s = nbr_mask[:, s] & alive_slot[idx] & alive_row[s]  # (B, D)
             coef_new, z_new = _sensor_update(
@@ -703,32 +706,201 @@ def robust_sweep(
     arrival-free problem ``robust_sweep == colored_sweep`` bitwise, engine
     by engine (the factors are the cached ones, see ``_masked_factors``).
     ``delivered``: optional (n_sweeps, n+1, D) link-delivery mask composed
-    on top (all-True is the plain robust sweep bitwise).
+    on top (all-True is the plain robust sweep bitwise); ``faults.faulty_sweep``
+    runs this path when its model crashes sensors.
 
     PERSISTENT membership changes belong to ``streaming.add_sensor`` /
     ``remove_sensor``, which patch the factors once per event.  Link-level
-    (n_sweeps, n, D) traces (the reference's ``robust_sweep_links``) are
-    not ported yet.
+    (n_sweeps, n, D) traces route to ``robust_sweep_links`` (single field,
+    serial, without ``delivered``: such a trace already encodes per-lane
+    loss).
     """
     alive = torch.as_tensor(alive, device=problem.device)
     if alive.ndim == 3:
-        raise NotImplementedError(
-            "link-level (n_sweeps, n, D) liveness traces run the reference's "
-            "robust_sweep_links, which is not ported yet"
-        )
+        if delivered is not None:
+            raise NotImplementedError(
+                "delivered masks compose with SENSOR-level alive traces; "
+                "legacy link-level traces already encode per-lane loss"
+            )
+        return robust_sweep_links(problem, state, alive, n_sweeps)
     alive = alive.to(torch.bool)
     if alive.ndim == 1:
         alive = alive[None].expand((n_sweeps,) + tuple(alive.shape))
     if tuple(alive.shape) != (n_sweeps, problem.n):
         raise ValueError(
-            f"alive must be (n,) or (n_sweeps={n_sweeps}, n={problem.n}); "
-            f"got {tuple(alive.shape)}"
+            f"alive must be (n,), (n_sweeps={n_sweeps}, n={problem.n}) or "
+            f"link-level (n_sweeps, n, D); got {tuple(alive.shape)}"
         )
     if delivered is not None and delivered.shape[0] != n_sweeps:
         raise ValueError(
             f"delivered has {delivered.shape[0]} sweeps, expected {n_sweeps}"
         )
     return _robust_colored(problem, state, alive, n_sweeps, engine, delivered)
+
+
+# ---------------------------------------------------------------------------
+# Single-field serial engines (paper Sec. 3.3 random orderings and link-level
+# robustness, Sec. 5.2 weighted losses): plain PyTorch, one sensor at a
+# time, with the serial engine's liveness and write conventions.
+# ---------------------------------------------------------------------------
+
+
+def _require_single_field(problem: SNTrainProblem, fn_name: str) -> None:
+    if problem.batched:
+        raise NotImplementedError(
+            f"{fn_name} supports single-field problems only; "
+            "use serial_sweep/colored_sweep for batches"
+        )
+
+
+def _random_core(problem: SNTrainProblem, state: SNTrainState, orders) -> SNTrainState:
+    """``random_sweep`` over given visiting orders, one (n,) array or tensor
+    per sweep (read on the host, one sync per sweep)."""
+    orders = [o.tolist() for o in orders]
+    z, coef = _serial_core(
+        problem.nbr_idx, problem.nbr_mask[None], problem.gram[None], problem.chol[None],
+        problem.lam_pad, problem.sentinel, state.z[None], state.coef[None], len(orders),
+        problem.alive, problem.alive_z, orders=orders,
+    )
+    return SNTrainState(z=z[0], coef=coef[0])
+
+
+def random_sweep(
+    problem: SNTrainProblem,
+    state: SNTrainState,
+    generator: torch.Generator,
+    n_sweeps: int = 1,
+) -> SNTrainState:
+    """ALOHA-style randomized control ordering (paper Sec. 3.3 'Parallelism').
+
+    Each sweep visits the sensors in a fresh uniformly random permutation
+    (``torch.randperm`` from ``generator``, on the problem's device).  Every
+    sensor appears once per sweep, so the serial ordering's fixed point
+    carries over (Lemma 3.2).  Single-field problems only.
+    """
+    _require_single_field(problem, "random_sweep")
+    orders = [torch.randperm(problem.n, generator=generator, device=problem.device)
+              for _ in range(n_sweeps)]
+    return _random_core(problem, state, orders)
+
+
+def _dense_serial(problem: SNTrainProblem, state: SNTrainState, n_sweeps: int, update):
+    """Single-field Table-1 sweeps with a directly solved sensor step.
+
+    ``update(z, coef_s, s, t)`` returns (coef_new, z_new, mask): the row's
+    coefficients take coef_new where the row is alive, and the mask's lanes
+    take z_new; the other lanes write the sentinel's own value back to it
+    (read before the write).
+    """
+    z, coef = state.z.clone(), state.coef.clone()
+    sentinel = problem.sentinel
+    for t in range(n_sweeps):
+        for s in range(problem.n):
+            coef_new, z_new, mask = update(z, coef[s], s, t)
+            coef[s] = torch.where(problem.alive[s], coef_new, coef[s])
+            target = torch.where(mask, problem.nbr_idx[s].long(), sentinel)
+            z.scatter_(0, target, torch.where(mask, z_new, z[sentinel]))
+    return SNTrainState(z=z, coef=coef)
+
+
+def _solve(a: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """a^{-1} rhs by LU, without the error check's host sync."""
+    return torch.linalg.solve_ex(a, rhs[:, None])[0][:, 0]
+
+
+def _dynamic_sensor_update(problem, z, coef_s, s, alive_s, alive_row, alive_slot):
+    """P_{C_s} with the current neighborhood N_{s,t} = N_s & alive_s.
+
+    Solves the masked system directly (no cached factor: the active set
+    changes per step).  The problem's persistent liveness intersects the
+    link mask, so dead sensors neither update nor are read here either.
+    """
+    idx = problem.nbr_idx[s].long()
+    mask = problem.nbr_mask[s] & alive_s & alive_slot[idx] & alive_row[s]
+    gram = torch.where(mask[:, None] & mask[None, :], problem.gram[s], 0.0)
+    lam = problem.lam_pad[s]
+    a = gram + torch.diag(torch.where(mask, lam, 1.0))
+    coef_prev = torch.where(mask, coef_s, 0.0)
+    rhs = torch.where(mask, z[idx] + lam * coef_prev, 0.0)
+    coef_new = _solve(a, rhs)
+    return coef_new, gram @ coef_new, mask
+
+
+def robust_sweep_links(
+    problem: SNTrainProblem,
+    state: SNTrainState,
+    link_alive,
+    n_sweeps: int = 1,
+) -> SNTrainState:
+    """Link-level robustness: the paper's Sec. 3.3 model verbatim.
+
+    ``link_alive`` (n_sweeps, n, D) bool: sweep t uses the neighborhoods
+    N_{s,t} = N_s & link_alive[t, s] & the problem's persistent row/slot
+    liveness, solved densely per sensor in the serial Table-1 ordering.
+    Single-field problems only; sensor-level liveness (the common case)
+    goes through ``robust_sweep``'s batched colored path.
+    """
+    _require_single_field(problem, "robust_sweep_links")
+    link_alive = torch.as_tensor(link_alive, device=problem.device).to(torch.bool)
+    if link_alive.shape[0] != n_sweeps:
+        raise ValueError(f"link_alive has {link_alive.shape[0]} sweeps, expected {n_sweeps}")
+    alive_row, alive_slot = problem.alive, problem.alive_z
+
+    def update(z, coef_s, s, t):
+        return _dynamic_sensor_update(
+            problem, z, coef_s, s, link_alive[t, s], alive_row, alive_slot
+        )
+
+    return _dense_serial(problem, state, n_sweeps, update)
+
+
+def _weighted_sensor_update(problem, z, coef_s, s, w_pad, alive_row, alive_slot):
+    """The reweighted projection: (W_s K_s + lambda_s I) c = W_s z + lambda_s c_prev."""
+    idx = problem.nbr_idx[s].long()
+    mask = problem.nbr_mask[s] & alive_slot[idx] & alive_row[s]
+    gram = torch.where(mask[:, None] & mask[None, :], problem.gram[s], 0.0)
+    lam = problem.lam_pad[s]
+    w_nbr = torch.where(mask, w_pad[idx], 0.0)
+    a = w_nbr[:, None] * gram + torch.diag(torch.where(mask, lam, 1.0))
+    rhs = torch.where(mask, w_nbr * z[idx] + lam * coef_s, 0.0)
+    coef_new = _solve(a, rhs)
+    return coef_new, gram @ coef_new, mask
+
+
+def weighted_sweep(
+    problem: SNTrainProblem,
+    state: SNTrainState,
+    weights,
+    n_sweeps: int = 1,
+) -> SNTrainState:
+    """SN-Train under the reweighted norm (paper Sec. 5.2, heteroscedastic
+    measurements): ``weights`` (n,) are per-sensor confidences w_j > 0.
+
+    Unit weights reduce to ``serial_sweep``; the iterates are Fejer
+    monotone in ``weighted_norm_sq_hetero``.  Liveness is threaded as in the
+    serial engine.  Single-field problems only.
+    """
+    _require_single_field(problem, "weighted_sweep")
+    dt, dev = state.z.dtype, state.z.device
+    w_pad = torch.cat([torch.as_tensor(weights, dtype=dt, device=dev),
+                       torch.zeros((problem.n_stream + 1,), dtype=dt, device=dev)])
+    alive_row, alive_slot = problem.alive, problem.alive_z
+
+    def update(z, coef_s, s, t):
+        return _weighted_sensor_update(problem, z, coef_s, s, w_pad, alive_row, alive_slot)
+
+    return _dense_serial(problem, state, n_sweeps, update)
+
+
+def weighted_norm_sq_hetero(
+    problem: SNTrainProblem, state: SNTrainState, weights
+) -> torch.Tensor:
+    """sum_j w_j z_j^2 + sum_i lambda_i ||f_i||^2, the Fejer invariant of
+    ``weighted_sweep``."""
+    w = torch.as_tensor(weights, dtype=state.z.dtype, device=state.z.device)
+    z_part = torch.sum(w * state.z[..., : problem.n] ** 2, dim=-1)
+    quad = torch.einsum("...sd,...sde,...se->...s", state.coef, problem.gram, state.coef)
+    return z_part + torch.sum(problem.lam_pad * quad, dim=-1)
 
 
 def local_only(problem: SNTrainProblem) -> SNTrainState:

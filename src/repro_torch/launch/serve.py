@@ -39,8 +39,18 @@ absorbs 8 arrivals, refreshes, makes a sensor leave every other round
 kNN request on the repaired plan.  Two rounds warm up; the rest are timed.
 The final kNN request runs on the repaired plan.
 
-Faults, pruning and the daemon of the reference launcher are not ported
-yet and refuse to run.
+``--faults SPEC`` trains under the seeded fault process
+(``core.faults``: i.i.d. drops, Gilbert-Elliott bursts, sensor crashes)
+with the convergence watchdog (``core.monitor``) supervising every round
+of ``--refresh_sweeps`` sweeps, up to ``--sweeps`` in all: a diverging
+round is retried with fresh draws, then the factors are rebuilt, then the
+entry state is restored.  The supervised run takes the place of the timed
+train call, as in the reference; it prints the watchdog receipt and its
+``watchdog.json:`` twin, and ``--stream``, ``--churn`` and the requests
+follow on the supervised state.
+
+Pruning (``--energy_tau``) and the daemon of the reference launcher are
+not ported yet and refuse to run.
 
 Examples (on the GPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --mode field \\
@@ -53,6 +63,9 @@ Examples (on the GPU):
     --fields 16 --sensors 1000 --dim 2 --radius 0.0949 --sweeps 30 \\
     --queries 4096 --fusion knn conn --k 3 --stream 2048 --on_full evict \\
     --churn 16 --spares 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode field \\
+    --fields 16 --sensors 1000 --dim 2 --radius 0.0949 --sweeps 30 \\
+    --queries 4096 --fusion knn conn --k 3 --faults drop=0.1,burst=0.05:0.4:0.5
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
     --arch mamba2-370m --variant full --batch 4 --prompt_len 512 --gen 32
 """
@@ -62,6 +75,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import json
 import time
 
 import numpy as np
@@ -73,10 +87,12 @@ from ..core import (
     Kernel,
     build_topology,
     colored_sweep,
+    faults,
     fusion,
     init_state,
     make_batch_problem,
     make_serving_plan,
+    monitor,
     plan_add_sensor,
     plan_remove_sensor,
     plans,
@@ -145,14 +161,15 @@ def serve_fields(args: argparse.Namespace) -> dict:
 
     Returns ``problem``, the trained ``state``, the query grid ``xq``, the
     (B, Q) answers under each ``--fusion`` rule, the timings and
-    ``train_calls`` (``colored_sweep`` calls, the warm-up included).  With
-    ``--stream`` or ``--churn``, ``problem`` and ``state`` are the streamed,
-    churned and refreshed ones the queries ran on; ``stream`` holds what
-    ``stream_fields`` returns and ``churn`` what ``churn_fields`` returns.
+    ``train_calls`` (``colored_sweep`` calls, the warm-up included; under
+    ``--faults`` the supervised rounds, and ``watchdog`` holds the
+    receipt).  With ``--stream`` or ``--churn``, ``problem`` and ``state``
+    are the streamed, churned and refreshed ones the queries ran on;
+    ``stream`` holds what ``stream_fields`` returns and ``churn`` what
+    ``churn_fields`` returns.
     """
-    for flag in ("faults", "energy_tau"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet")
+    if args.energy_tau:
+        raise NotImplementedError("--energy_tau is not ported yet")
     dev = _device.resolve(args.device)
     b, n = args.fields, args.sensors
     rng = np.random.default_rng(args.seed)
@@ -165,15 +182,17 @@ def serve_fields(args: argparse.Namespace) -> dict:
     )
 
     train_engine = "cuda" if args.engine == "cuda" else "plan"
-    state, train_s = _timed(
-        lambda: colored_sweep(prob, state0, n_sweeps=args.sweeps, engine=train_engine), dev
-    )
-    print(
-        f"train[engine={train_engine}]: {args.sweeps} sweeps x {b} fields in "
-        f"{train_s:.4f}s -> {b / train_s:.1f} fields/s"
-    )
-
-    res = dict(train_s=train_s, train_calls=TIMED_CALLS)
+    if args.faults:
+        prob, state, res = train_faulty(args, prob, state0, train_engine)
+    else:
+        state, train_s = _timed(
+            lambda: colored_sweep(prob, state0, n_sweeps=args.sweeps, engine=train_engine), dev
+        )
+        print(
+            f"train[engine={train_engine}]: {args.sweeps} sweeps x {b} fields in "
+            f"{train_s:.4f}s -> {b / train_s:.1f} fields/s"
+        )
+        res = dict(train_s=train_s, train_calls=TIMED_CALLS)
     if args.stream:
         prob, state, res["stream"] = stream_fields(args, prob, state, rng, train_engine)
     plan = None
@@ -192,6 +211,41 @@ def serve_fields(args: argparse.Namespace) -> dict:
         res[rule] = out
         res[f"{rule}_s"] = dt
     return res
+
+
+def train_faulty(args: argparse.Namespace, prob, state, engine: str):
+    """Train under ``--faults`` with the watchdog supervising, as the reference does.
+
+    Rounds of ``--refresh_sweeps`` sweeps, at most ``ceil(sweeps /
+    refresh_sweeps)`` of them, converged at ``--watch_tol``; the fault draws
+    come from a generator on the problem's device seeded with ``--seed +
+    1``.  Prints the ``train[faults ...]`` line, the receipt and its
+    ``watchdog.json:`` twin.  Returns ``(problem, state, res)``; ``res``
+    has ``train_s``, ``train_calls`` (the rounds run, one ``faulty_sweep``
+    call each) and the ``watchdog`` receipt.
+    """
+    dev = prob.device
+    model = faults.parse_fault_spec(args.faults, dtype=state.z.dtype, device=dev)
+    cfg = monitor.WatchdogConfig(
+        sweeps_per_round=args.refresh_sweeps,
+        tol=args.watch_tol,
+        max_rounds=max(1, -(-args.sweeps // args.refresh_sweeps)),
+    )
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    _sync(dev)
+    t0 = time.perf_counter()
+    prob, state, receipt = monitor.watch_sweeps(
+        prob, state, model=model, generator=gen, engine=engine, config=cfg
+    )
+    _sync(dev)
+    train_s = time.perf_counter() - t0
+    print(
+        f"train[faults {args.faults}, engine={engine}]: {receipt.sweeps} supervised "
+        f"sweeps x {args.fields} fields in {train_s:.4f}s"
+    )
+    print(monitor.format_receipt(receipt))
+    print("watchdog.json: " + json.dumps(receipt.to_json()))
+    return prob, state, dict(train_s=train_s, train_calls=receipt.rounds, watchdog=receipt)
 
 
 def stream_fields(args: argparse.Namespace, prob, state, rng, engine: str):
@@ -488,7 +542,8 @@ def parser() -> argparse.ArgumentParser:
                          "arrivals one step per absorb, 1.0 is the static path")
     ap.add_argument("--sweeps", type=int, default=30)
     ap.add_argument("--refresh_sweeps", type=int, default=5,
-                    help="colored sweeps after --stream's arrivals")
+                    help="colored sweeps after --stream's arrivals and per churn "
+                         "refresh; the sweeps per --faults watchdog round")
     ap.add_argument("--stream", type=int, default=0, help="streaming arrivals to absorb")
     ap.add_argument("--on_full", default="drop", choices=["drop", "evict"],
                     help="over-capacity arrival policy (evict = sliding window)")
@@ -511,8 +566,14 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--spares", type=int, default=8,
                     help="spare sensor rows reserved for --churn joins (n_max = sensors + "
                          "spares; the recolor pool is 2x this)")
-    # reference flags whose features are not ported yet: refused when set
-    ap.add_argument("--faults", default="", help="not ported yet")
+    ap.add_argument("--faults", default="",
+                    help="train under unreliable links: drop=P[,burst=to_bad:to_good:"
+                         "drop_bad][,crash=p_crash:p_restart], supervised by the "
+                         "convergence watchdog in rounds of --refresh_sweeps sweeps")
+    ap.add_argument("--watch_tol", type=float, default=1e-3,
+                    help="--faults watchdog convergence tolerance (max |dz| / max |z| "
+                         "per round)")
+    # a reference flag whose feature is not ported yet: refused when set
     ap.add_argument("--energy_tau", type=float, default=0.0, help="not ported yet")
     return ap
 

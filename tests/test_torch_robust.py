@@ -128,8 +128,10 @@ def test_matches_reference_with_liveness_and_delivery(engine):
 
 def test_refusals():
     prob, state = _port_problem(b=1)
-    with pytest.raises(NotImplementedError, match="robust_sweep_links"):
-        tr.robust_sweep(prob, state, torch.ones((2, prob.n, 3), dtype=torch.bool), n_sweeps=2)
+    d = prob.nbr_idx.shape[1]
+    with pytest.raises(NotImplementedError, match="link-level traces"):
+        tr.robust_sweep(prob, state, torch.ones((2, prob.n, d), dtype=torch.bool), n_sweeps=2,
+                        delivered=torch.ones((2, prob.n + 1, d), dtype=torch.bool))
     with pytest.raises(ValueError, match="alive must be"):
         tr.robust_sweep(prob, state, torch.ones((3, prob.n), dtype=torch.bool), n_sweeps=2)
     with pytest.raises(ValueError, match="delivered"):

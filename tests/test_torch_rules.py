@@ -8,7 +8,7 @@ import pytest
 import torch
 
 import repro_torch.core as tr
-from repro_torch import convert, models
+from repro_torch import checkpoint, convert, models
 from repro_torch.configs import get_config
 from repro_torch.kernels import _build, color_step, gram, kernel_matvec, knn_fuse, ssd_intra
 from repro_torch.launch import profile_field, profile_lm, serve
@@ -57,6 +57,10 @@ ENTRY_POINTS = {
     "serve.main": lambda: serve.main(["--fields", "2", "--sensors", "8"]),
     "serve.main stream": lambda: serve.main(["--fields", "2", "--sensors", "8", "--stream", "4"]),
     "serve.main churn": lambda: serve.main(["--fields", "2", "--sensors", "8", "--churn", "2"]),
+    "serve.main faults": lambda: serve.main(["--fields", "2", "--sensors", "8",
+                                             "--faults", "drop=0.1"]),
+    "make_fault_model": lambda: tr.make_fault_model(0.1),
+    "parse_fault_spec": lambda: tr.faults.parse_fault_spec("drop=0.1"),
     "models.init_params": lambda: models.init_params(get_config("mamba2-370m", variant="smoke")),
     "serve.main lm": lambda: serve.main(["--mode", "lm", "--variant", "smoke", "--batch", "1",
                                          "--prompt_len", "4", "--gen", "1"]),
@@ -126,9 +130,9 @@ def test_missing_nvcc_raises_and_names_it(monkeypatch, tmp_path):
         _build.build_all()
 
 
-@pytest.mark.parametrize("flag", [["--churn", "2", "--faults", "drop=0.1"],
-                                  ["--faults", "drop=0.1"], ["--energy_tau", "0.1"],
-                                  ["--mode", "daemon"]])
+@pytest.mark.parametrize("flag", [["--churn", "2", "--energy_tau", "0.1"],
+                                  ["--faults", "drop=0.1", "--energy_tau", "0.1"],
+                                  ["--energy_tau", "0.1"], ["--mode", "daemon"]])
 def test_unported_launcher_features_refuse(flag):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         serve.main(["--device", "cpu", "--fields", "2", "--sensors", "8"] + flag)
@@ -148,4 +152,22 @@ def test_lifecycle_entry_points_stay_on_the_problems_device():
     tensors = [v for v in rec] + [ok, out.z, out.coef, state.z, state.coef]
     tensors += [v for v in vars(prob).values() if isinstance(v, torch.Tensor)]
     assert bool(rec.joined) and bool(ok)
+    assert all(t.device.type == "cpu" for t in tensors)
+
+
+def test_fault_entry_points_stay_on_the_problems_device(tmp_path):
+    """faulty_sweep, watch_sweeps and restore_train take their device from
+    the problem (the template): every tensor they return lies there."""
+    pos = np.random.default_rng(0).uniform(-1, 1, size=(10, 1)).astype(np.float32)
+    prob = tr.make_batch_problem(tr.build_topology(pos, 0.8, device="cpu"), tr.Kernel(),
+                                 np.zeros((2, 10)), np.full((10,), 0.1, np.float32),
+                                 device="cpu")
+    state = tr.init_state(prob)
+    model = tr.faults.parse_fault_spec("drop=0.1,crash=0.1:0.5", device="cpu")
+    out = tr.faulty_sweep(prob, state, model, torch.Generator(), 2, engine="cuda")
+    prob2, state2, _ = tr.watch_sweeps(prob, state, model=model, generator=torch.Generator(),
+                                       engine="cuda", snapshot_dir=str(tmp_path))
+    p3, s3 = checkpoint.restore_train(str(tmp_path), 0, prob2, state2)
+    tensors = [out.z, out.coef, state2.z, state2.coef, s3.z, s3.coef]
+    tensors += [v for p in (prob2, p3) for v in vars(p).values() if isinstance(v, torch.Tensor)]
     assert all(t.device.type == "cpu" for t in tensors)
