@@ -90,6 +90,29 @@ Phases, one line or more each; any failure raises and exits non-zero:
              reference's acceptance (kNN-fused RMSE at 10% drops within 2x
              of fault-free); the single-field serial engines on field 0; and
              a round's time split;
+  3e. main-daemon the serving daemon (``repro_torch.launch.daemon.Daemon``)
+             at the churned geometry (n = 1000 + 8 spares, B = 16, D = 24,
+             k = 3, the query plan of the churn launcher), trained 30 sweeps
+             first, with energy_tau at the 0.1 quantile of the live energies,
+             under the reference daemon bench's traffic: per tick 4 requests
+             of 1-256 rows and 1-32 arrivals, a join or a leave every 4th
+             tick, 16 clean ticks, 8 under 10% drops, 4 clean, a checkpoint
+             every 4 ticks; launch counters set to 0 before the 28 ticks and
+             read after: knn_fuse once per dispatch, color_step once per
+             watchdog round, no library built; each published snapshot's
+             sha256 unchanged through the next tick, also across a forced
+             rollback (a NaN-poisoned working state); on the final snapshot
+             knn_fuse against knn_fuse_ref and the plain engine (the same
+             picks, 1e-5 or the f64 witness), the compacted plan (1e-6) and
+             answer_bound on a 4096-point grid; the first 8 ticks, and the
+             fault episode's first 4 from the measured daemon's working
+             pair and fault generator, replayed with plan engines (receipt
+             integers equal, answers 2e-4); a warm restart from the last
+             checkpoint (digest and probe answers bitwise); the CLI killed
+             with SIGKILL after two checkpoints and restarted with
+             --verify-restart; then the launcher of phase 3 with
+             --energy_tau (knn_fuse on the compacted plan, held to
+             knn_fuse_ref on the request's inputs);
   4. main-lm the port's launcher in LM mode: mamba2-370m at full width in
              its own bf16, random weights from seed 0, a 4 x 512 prompt
              and 32 greedy tokens, with every launch counter set to 0
@@ -100,8 +123,8 @@ Phases, one line or more each; any failure raises and exits non-zero:
              final SSM state and 4 teacher-forced decode steps, with an
              f64 run of the plain route as the witness;
   5. report  the kernels JSON line (``launches``: the sum over the field,
-             stream, churn, faults and LM paths' runs, each path's count
-             beside it), the card's name and power limit, and the final
+             stream, churn, faults, daemon, prune and LM paths' runs, each
+             path's count beside it), the card's name and power limit, and the final
              {"ok": true, ...} line.
 
 Tolerances are the reference's own.  Per color step, on identical inputs:
@@ -515,22 +538,13 @@ def knn_f64(torch, ins, sel, gamma: float):
     return torch.where(valid[None], f, 0.0).sum(-1) / valid.sum(-1).clamp(min=1)
 
 
-def compare_knn(torch, ins, alive, gamma: float, k: int, label: str,
-                witness: bool = False) -> tuple[float, int]:
-    """knn_fuse against knn_fuse_ref: identical selections, outputs within
-    1e-5 (f32) or 1e-10 (f64); returns (max |err|, valid picks).  With
-    ``witness``, where the two f32 summation orders differ by more, the
-    kernel's error against a float64 evaluation of the same picks may be at
-    most WITNESS_FACTOR times the plain version's."""
-    from repro_torch.kernels import knn_fuse as kf
-
-    out, sel = kf.knn_fuse_fused(*ins, alive=alive, gamma=gamma, k=k, with_selection=True)
-    ref, ref_sel = kf.knn_fuse_ref(*ins[:4], alive, *ins[4:], gamma=gamma, k=k)
-    torch.cuda.synchronize()
-    q, b = ins[0].shape[0], ins[-1].shape[0]
-    check(torch.equal(sel, ref_sel), f"knn_fuse {label}: selected sets differ")
-    check(out.dtype == ins[-1].dtype and out.shape == (b, q),
-          f"knn_fuse {label}: output {out.dtype} {tuple(out.shape)}")
+def knn_agree(torch, out, ref, ins, sel, gamma: float, label: str,
+              witness: bool = False) -> float:
+    """``out`` (the kernel's) against ``ref`` (a plain version's) on the same
+    picks ``sel``: within 1e-5 (f32) or 1e-10 (f64); returns max |err|.
+    With ``witness``, where the two f32 summation orders differ by more, the
+    kernel's error against a float64 evaluation of the picks may be at most
+    WITNESS_FACTOR times the plain version's."""
     err = max_err(out, ref)
     tol = 1e-5 if out.dtype == torch.float32 else 1e-10
     ok = err <= tol
@@ -543,14 +557,35 @@ def compare_knn(torch, ins, alive, gamma: float, k: int, label: str,
               f"{WITNESS_FACTOR})")
     check(bool(torch.isfinite(out).all()) and ok,
           f"knn_fuse {label}: max err {err:.3g} (tol {tol})")
-    return err, int((sel >= 0).sum())
+    return err
+
+
+def compare_knn(torch, ins, alive, gamma: float, k: int, label: str,
+                witness: bool = False, served=None) -> tuple:
+    """knn_fuse against knn_fuse_ref: identical selections, outputs within
+    ``knn_agree``'s bound; returns (max |err|, the (Q, k) picks).
+    ``served``: answers a path served on these inputs, which must be the
+    kernel's bitwise."""
+    from repro_torch.kernels import knn_fuse as kf
+
+    out, sel = kf.knn_fuse_fused(*ins, alive=alive, gamma=gamma, k=k, with_selection=True)
+    ref, ref_sel = kf.knn_fuse_ref(*ins[:4], alive, *ins[4:], gamma=gamma, k=k)
+    torch.cuda.synchronize()
+    q, b = ins[0].shape[0], ins[-1].shape[0]
+    check(torch.equal(sel, ref_sel), f"knn_fuse {label}: selected sets differ")
+    check(out.dtype == ins[-1].dtype and out.shape == (b, q),
+          f"knn_fuse {label}: output {out.dtype} {tuple(out.shape)}")
+    check(served is None or torch.equal(served, out),
+          f"knn_fuse {label}: the served answers are not the kernel's on these inputs")
+    return knn_agree(torch, out, ref, ins, sel, gamma, label, witness), sel
 
 
 def check_knn(torch, prob, state, anchor_dtype, label: str) -> float:
     ins, alive, _ = knn_inputs(torch, prob, state, 4096, seed=2)
     if anchor_dtype is not None:
         ins = ins[:5] + (ins[5].to(anchor_dtype),) + ins[6:]
-    err, picks = compare_knn(torch, ins, alive, prob.kernel.gamma, 3, label)
+    err, sel = compare_knn(torch, ins, alive, prob.kernel.gamma, 3, label)
+    picks = int((sel >= 0).sum())
     print(f"kernels: knn_fuse {label} ok: Q={ins[0].shape[0]} k=3, identical selections "
           f"({picks} picks), max |err| {err:.3g}")
     return err
@@ -589,7 +624,8 @@ def check_knn_ties(torch, dtype, anchor_dtype, label: str) -> None:
         ins, alive, _ = knn_inputs(torch, prob, state, 0, seed=0, k=k, xq=xq)
         if anchor_dtype is not None:
             ins = ins[:5] + (ins[5].to(anchor_dtype),) + ins[6:]
-        err, picks = compare_knn(torch, ins, alive, prob.kernel.gamma, k, f"{label} ties k={k}")
+        err, sel = compare_knn(torch, ins, alive, prob.kernel.gamma, k, f"{label} ties k={k}")
+        picks = int((sel >= 0).sum())
         readings.append(f"k={k}: {picks} picks, max |err| {err:.3g}")
     print(f"kernels: knn_fuse {label} ties ok: {xq.shape[0]} queries at lattice points and "
           f"cell midpoints, identical selections; " + "; ".join(readings))
@@ -1115,7 +1151,8 @@ def run_waves(torch) -> dict:
     check(err_z <= STREAM_Z_TOL and err_c <= STREAM_COEF_TOL,
           f"main-stream waves: color_sweep vs plan: |dz| {err_z:.3g}, |dcoef| {err_c:.3g}")
     ins, alive, _ = knn_inputs(torch, prob, st_c, 4096, seed=13)
-    err_knn, picks = compare_knn(torch, ins, alive, prob.kernel.gamma, 3, "streamed waves")
+    err_knn, sel = compare_knn(torch, ins, alive, prob.kernel.gamma, 3, "streamed waves")
+    picks = int((sel >= 0).sum())
     xq = torch.as_tensor(np.stack([np.linspace(-1, 1, 4096), np.zeros(4096)], 1),
                          dtype=torch.float32, device=prob.device)
     xq32, anchors, coefs = conn_inputs(torch, prob, st_c, xq)
@@ -1232,8 +1269,9 @@ def run_churn_launcher(torch, mods) -> tuple[dict, dict]:
     _, line = matvec_case(torch, xq32, anchors, coefs, args.gamma, "churned conn route",
                           held=None)
     ins, alive, _ = knn_inputs(torch, prob, state, 4096, seed=17, plan=plan)
-    err_kf, picks = compare_knn(torch, ins, alive, prob.kernel.gamma, args.k, "churned plan",
-                                witness=True)
+    err_kf, sel = compare_knn(torch, ins, alive, prob.kernel.gamma, args.k, "churned plan",
+                              witness=True)
+    picks = int((sel >= 0).sum())
     print(f"main-churn: kernel_matvec {line}; knn_fuse on the repaired plan: identical "
           f"selections ({picks} picks), max |err| {err_kf:.3g}")
     readings = dict(
@@ -1896,6 +1934,488 @@ def run_faults_checks(torch, mods) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3e: the serving daemon, with representer pruning.
+# ---------------------------------------------------------------------------
+
+# The reference daemon bench's traffic (benchmarks/daemon_bench.py:96-138),
+# scaled to the churned field geometry: per tick 4 requests of 1-256 rows
+# uniform in [-1, 1]^2 and 1-32 arrivals, a join or a leave every 4th tick
+# (alternating), 16 clean ticks, 8 under 10% link drops (its EPISODE_DROP)
+# and 4 clean; a checkpoint every 4 ticks.
+DAEMON_PHASES = ((16, 0.0), (8, 0.1), (4, 0.0))  # (ticks, drop rate)
+DAEMON_REQUESTS, DAEMON_MAX_ROWS, DAEMON_ARRIVALS = 4, 256, 32
+DAEMON_CHURN_EVERY, DAEMON_CKPT_EVERY = 4, 4
+DAEMON_REPLAY_TICKS = 8  # replayed through a daemon with plan engines
+DAEMON_EPISODE_REPLAY = 4  # the fault episode's first ticks, replayed likewise
+DAEMON_PRUNE_Q = 0.1  # energy_tau: this quantile of the live energies at the first publish
+DAEMON_SLO = 3.0  # the reference's fault-episode p99 budget (printed, not gated)
+DAEMON_GRID = 64  # 64 x 64 = 4096 queries held to answer_bound
+DAEMON_CLI = ["--device", "cuda", "--sensors", "16", "--fields", "2", "--ckpt-every", "1",
+              "--queries-per-tick", "1", "--arrivals-per-tick", "4"]
+TICK_INTS = ("tick", "published", "degraded", "version", "absorbed", "arrival_drops",
+             "arrivals_rolled_back", "joins", "leaves", "ckpt_step")
+# the receipt integers that do not count ticks, versions or checkpoints: a
+# replay started mid-run compares these
+TICK_WORK_INTS = ("published", "degraded", "absorbed", "arrival_drops", "arrivals_rolled_back",
+                  "joins", "leaves")
+WATCHDOG_INTS = ("converged", "rounds", "sweeps", "retries", "refactorized", "rolled_back",
+                 "diverged")
+
+
+def snapshot_digest(snap) -> str:
+    """sha256 of everything a published snapshot serves from: the state
+    digest (problem and state), the plan's tables, ``ecoef`` and the prune
+    mask."""
+    import hashlib
+
+    from repro_torch.launch import daemon
+
+    h = hashlib.sha256(daemon._state_digest(snap.problem, snap.state).encode())
+    for t in (snap.plan.cells, snap.plan.cell_mask, snap.ecoef, snap.keep):
+        if t is not None:
+            h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def daemon_traffic(args, prob, seed: int = 0) -> list:
+    """Per tick: (requests, arrivals, event, drop rate), drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    b, n, d = args.fields, prob.n_base, args.dim
+    pos = prob.topology.positions[:n].cpu().numpy()
+    out, t = [], 0
+    for ticks, drop in DAEMON_PHASES:
+        for _ in range(ticks):
+            reqs = [rng.uniform(-1, 1, size=(int(rng.integers(1, DAEMON_MAX_ROWS + 1)), d))
+                    .astype(np.float32) for _ in range(DAEMON_REQUESTS)]
+            a = int(rng.integers(1, DAEMON_ARRIVALS + 1))
+            ss = rng.integers(0, n, size=a)
+            arrivals = (rng.integers(0, b, size=a), ss,
+                        (pos[ss] + 0.05 * rng.normal(size=(a, d))).astype(np.float32),
+                        rng.normal(size=a).astype(np.float32))
+            event = None
+            if t % DAEMON_CHURN_EVERY == 0:
+                if (t // DAEMON_CHURN_EVERY) % 2 == 0:
+                    event = ("join", rng.uniform(-0.9, 0.9, size=d).astype(np.float32),
+                             rng.normal(size=b).astype(np.float32))
+                else:  # a random slot: a dead one is a counted no-op, as in the bench
+                    event = ("leave", int(rng.integers(0, n)))
+            out.append((reqs, arrivals, event, drop))
+            t += 1
+    return out
+
+
+def drive_daemon(torch, d, traffic, lam: float, hold=None) -> list:
+    """Run ``traffic`` through ``d`` as the bench does (submit, offer, tick,
+    pump).  ``hold(t, snap)`` is called before each tick with the published
+    snapshot and returns a callback run after the tick.  Returns per tick
+    (receipt, answers by ticket order, latencies, split)."""
+    from repro_torch.core import make_fault_model
+
+    rows = []
+    drop_now = None
+    for t, (reqs, arrivals, event, drop) in enumerate(traffic):
+        if drop != drop_now:
+            d.set_fault_model(make_fault_model(drop, dtype=d._work[1].z.dtype, device=d.device))
+            drop_now = drop
+        after = hold(t, d.snapshot) if hold is not None else None
+        tickets = [d.submit(x) for x in reqs]
+        d.offer_arrivals(*arrivals)
+        if event is not None and event[0] == "join":
+            d.offer_join(event[1], event[2], lam=lam)
+        elif event is not None:
+            d.offer_leave(event[1])
+        rcpt = d.tick()
+        answers = {a.id: a for a in d.pump()}
+        if after is not None:
+            after()
+        check(all(tk.admitted and tk.id in answers for tk in tickets),
+              f"main-daemon tick {t}: a request was shed or not answered")
+        vals = [answers[tk.id].values for tk in tickets]
+        check(all(np.isfinite(v).all() and v.shape == (d.snapshot.ecoef.shape[0], x.shape[0])
+                  for v, x in zip(vals, reqs)), f"main-daemon tick {t}: bad answers")
+        rows.append((rcpt, vals, [answers[tk.id].latency_s * 1e3 for tk in tickets],
+                     dict(d.last_split, pruned=d.snapshot.pruned)))
+    return rows
+
+
+def warm_up_daemon(torch, d, traffic, lam: float) -> None:
+    """Touch every path the measured run takes once, on a throwaway daemon
+    over the same problem (which it never writes): each dispatch bucket, a
+    full and a padded arrival window, a join, a leave, a drill and a
+    checkpoint, as the reference bench warms up."""
+    from repro_torch.core import make_fault_model
+    from repro_torch.checkpoint import save_train
+
+    rng = np.random.default_rng(1)
+    dim = d.snapshot.problem.topology.positions.shape[1]
+    q = 8
+    while q <= DAEMON_MAX_ROWS:
+        d.submit(rng.uniform(-1, 1, size=(q, dim)).astype(np.float32))
+        d.pump()
+        q *= 2
+    # 49 arrivals: a full window of 32 and one padded from 17 to 32
+    arrivals = [np.concatenate(a)[:49] for a in zip(*(t[1] for t in traffic[:8]))]
+    d.offer_arrivals(*arrivals)
+    d.offer_join(np.zeros(dim, np.float32), np.zeros(d.snapshot.ecoef.shape[0], np.float32),
+                 lam=lam)
+    d.tick()
+    d.offer_arrivals(*arrivals)
+    d.offer_leave(3)
+    d.tick()
+    d.set_fault_model(make_fault_model(0.1, dtype=d._work[1].z.dtype, device=d.device))
+    d.tick()
+    with tempfile.TemporaryDirectory() as tmp:
+        save_train(tmp, 0, d.snapshot.problem, d.snapshot.state)
+    torch.cuda.synchronize()
+
+
+def replay_err(rows, rrows, ints, label: str, offset: int = 0) -> float:
+    """Checks that each replayed tick's receipt has the measured one's
+    ``ints`` and watchdog integers; returns the answers' max |err|."""
+    err = 0.0
+    for t, (a, b) in enumerate(zip(rows, rrows), start=offset):
+        ja, jb = a[0].to_json(), b[0].to_json()
+        same = all(ja[k] == jb[k] for k in ints) and all(
+            ja["watchdog"][k] == jb["watchdog"][k] for k in WATCHDOG_INTS)
+        check(same, f"main-daemon {label} tick {t}: receipts differ: {ja} vs {jb}")
+        err = max([err] + [float(np.abs(x - y).max()) for x, y in zip(a[1], b[1])])
+    return err
+
+
+def pct(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs, dtype=np.float64), q)) if len(xs) else float("nan")
+
+
+def run_daemon(torch, mods) -> tuple[dict, dict, float]:
+    """The Daemon at the churned field geometry under the bench's traffic,
+    launches counted from 0 around the 28 ticks; then the isolation,
+    plain-engine, replay and warm-restart checks.  Returns (launches,
+    readings, energy_tau)."""
+    import dataclasses
+
+    from repro_torch.core import colored_sweep, fusion, init_state, make_serving_plan, pruning
+    from repro_torch.core import serving
+    from repro_torch.kernels import _build
+    from repro_torch.launch import daemon, serve
+
+    _, args = churn_args()
+    prob = serve.build_problem(args)
+    dev = prob.device
+    state0 = colored_sweep(prob, init_state(prob), n_sweeps=args.sweeps, engine="cuda")
+    plan0 = make_serving_plan(prob, k=args.k, spare=args.spares + 4, slack=16)
+    energy = pruning.representer_energy(prob, state0)[: prob.n]
+    tau = float(torch.quantile(energy[prob.alive[: prob.n]], DAEMON_PRUNE_Q))
+    traffic = daemon_traffic(args, prob)
+    ckdir = tempfile.mkdtemp(prefix="daemon_ckpt_")
+    cfg = daemon.DaemonConfig(k=args.k, max_batch_rows=DAEMON_MAX_ROWS,
+                              arrival_rows=DAEMON_ARRIVALS, ckpt_every=DAEMON_CKPT_EVERY,
+                              snapshot_dir=ckdir, energy_tau=tau)
+    print(f"main-daemon: n={args.sensors} (+{args.spares} spares) B={args.fields} "
+          f"D={prob.topology.d_max} k={args.k}, plan K_max={plan0.k_max} "
+          f"({plan0.n_cells} cells), energy_tau={tau!r} (the {DAEMON_PRUNE_Q} quantile of "
+          f"the live energies), {len(traffic)} ticks")
+    try:
+        warm_up_daemon(torch, daemon.Daemon(prob, state0, plan=plan0, config=dataclasses.replace(
+            cfg, ckpt_every=0, snapshot_dir=None)), traffic, args.lam)
+        d = daemon.Daemon(prob, state0, config=cfg, plan=plan0)
+        pruned0 = d.snapshot.pruned
+        print(f"main-daemon: first publish prunes {pruned0} of "
+              f"{int(prob.alive[: prob.n].sum())} live sensors")
+        check(pruned0 > 0, "main-daemon: the first publish pruned nothing")
+        dispatches = []  # (rows, ms)
+        serve_plain = d.dispatch
+
+        def timed_dispatch(snap, xq):
+            t0 = time.perf_counter()
+            out = serve_plain(snap, xq)
+            torch.cuda.synchronize()
+            dispatches.append((xq.shape[0], (time.perf_counter() - t0) * 1e3))
+            return out
+
+        d.dispatch = timed_dispatch
+        isolation = []
+        e0 = DAEMON_PHASES[0][0]  # the fault episode's first tick
+        episode = {}
+
+        def hold(t, snap):
+            if t == e0:  # what the episode's replay starts from
+                episode.update(work=d._work, plan=d._plan, gen=d._gen.get_state())
+            before = snapshot_digest(snap)
+            return lambda: isolation.append(snapshot_digest(snap) == before)
+
+        builds0 = _build.builds
+        for mod in mods.values():
+            mod.launches = 0
+        t0 = time.perf_counter()
+        rows = drive_daemon(torch, d, traffic, args.lam, hold)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {name: mod.launches for name, mod in mods.items()}
+        builds = _build.builds - builds0
+        rounds = sum(r[0].watchdog.rounds for r in rows)
+        print("main-daemon: kernel launches " + json.dumps(launches)
+              + f" ({len(dispatches)} dispatches, {rounds} watchdog rounds); CUDA library "
+              f"builds during the run {builds}")
+        expected = dict({name: 0 for name in mods}, color_step=rounds,
+                        knn_fuse=len(dispatches))
+        check(launches == expected, f"main-daemon: launches {launches}, expected {expected}")
+        check(builds == 0, "main-daemon: a CUDA library was built during the run")
+        check(len(isolation) == len(rows) and all(isolation),
+              f"main-daemon: a published snapshot changed under a later tick: {isolation}")
+
+        # a forced rollback, on a daemon over the final snapshot with room
+        # for the whole ladder (rounds_per_tick 14, as tests/test_daemon.py)
+        snap = d.snapshot
+        rb = daemon.Daemon(snap.problem, snap.state, plan=snap.plan, config=dataclasses.replace(
+            cfg, rounds_per_tick=14, ckpt_every=0, snapshot_dir=None))
+        held = rb.snapshot
+        before = snapshot_digest(held)
+        wp, ws = rb._work
+        z = ws.z.clone()
+        z[0, 0] = float("nan")  # a poisoned copy of the working state
+        rb._work = (wp, type(ws)(z=z, coef=ws.coef))
+        bad = rb.tick()
+        aliased = rb._work[0] is held.problem and rb._work[1] is held.state
+        good = rb.tick()  # from the restored working pair, which aliases the snapshot
+        intact = snapshot_digest(held) == before
+        print(f"main-daemon rollback: rolled_back={bad.watchdog.rolled_back} "
+              f"published={bad.published} degraded={bad.degraded}; working pair aliased the "
+              f"snapshot {aliased}; next tick published={good.published}; held snapshot "
+              f"digest unchanged {intact}")
+        check(bad.watchdog.rolled_back and not bad.published and aliased and good.published
+              and intact, "main-daemon: the forced rollback")
+
+        # the final snapshot: its answers on the plain engine; then, pruned
+        # at the 0.1 quantile of its own energies (training grows them past
+        # the first publish's threshold), the compacted plan against the
+        # prune mask and every query of a grid within answer_bound
+        snap = d.snapshot
+        h = np.linspace(-0.95, 0.95, DAEMON_GRID)
+        grid = np.stack(np.meshgrid(h, h, indexing="ij"), -1).reshape(-1, 2).astype(np.float32)
+        xq = torch.as_tensor(grid, device=dev)
+        kern = serve_plain(snap, xq)
+        # the kernel against its plain version on the snapshot's inputs, as
+        # main-churn holds the churned plan (1e-5, else the float64 witness);
+        # the served answers are the kernel's on these inputs
+        ins = knn_inputs(torch, snap.problem, snap.state, 0, seed=0, xq=xq, plan=snap.plan)[0]
+        check(torch.equal(ins[-1], snap.ecoef), "main-daemon: the snapshot's ecoef")
+        alive = snap.problem.alive & snap.keep
+        gamma = snap.problem.kernel.gamma
+        err_kf, sel = compare_knn(torch, ins, alive, gamma, args.k, "daemon snapshot",
+                                  witness=True, served=kern)
+        # the plain engine on the same snapshot: the same picks, answers in
+        # the same bound
+        plain = fusion.fuse(snap.problem, snap.state, xq, "knn", k=args.k, engine="plan",
+                            plan=snap.plan, ecoef=snap.ecoef, prune=snap.keep)
+        sel_pl, ok_pl = serving.knn_select_valid(snap.plan, snap.problem.topology.positions, xq,
+                                                 args.k, alive)
+        check(torch.equal(torch.where(ok_pl, sel_pl, -1).to(sel.dtype), sel),
+              "main-daemon: the plain engine picked other neighbours")
+        err_plain = knn_agree(torch, kern, plain, ins, sel, gamma,
+                              "daemon served vs the plain engine", witness=True)
+        e = pruning.representer_energy(snap.problem, ecoef=snap.ecoef)
+        n = snap.problem.n
+        tau_final = float(torch.quantile(e[:n][snap.problem.alive[:n]], DAEMON_PRUNE_Q))
+        keep = pruning.prune_mask(snap.problem, ecoef=snap.ecoef, energy_tau=tau_final)
+        knn = lambda plan, prune: fusion.fuse(  # noqa: E731
+            snap.problem, snap.state, xq, "knn", k=args.k, engine="cuda", plan=plan,
+            ecoef=snap.ecoef, prune=prune)
+        masked = knn(snap.plan, keep)
+        compact, rep = pruning.prune_plan(snap.problem, None, snap.plan, energy_tau=tau_final,
+                                          ecoef=snap.ecoef)
+        err_comp = max_err(masked, knn(compact, None))
+        positions = snap.problem.topology.positions
+        sel_u = serving.knn_select_valid(snap.plan, positions, xq, args.k, snap.problem.alive)
+        sel_p = serving.knn_select_valid(snap.plan, positions, xq, args.k,
+                                         snap.problem.alive & keep)
+        bnd = pruning.answer_bound(e, *sel_u, *sel_p)
+        gap = (knn(snap.plan, None) - masked).abs().amax(0).cpu().numpy()
+        over = float((gap - bnd).max())
+        print(f"main-daemon final snapshot (version {snap.version}, {snap.pruned} pruned at "
+              f"the first publish's tau, |answer| <= {float(kern.abs().max()):.3g}): served vs "
+              f"the plain engine max |err| {err_plain:.3g}, knn_fuse vs knn_fuse_ref "
+              f"{err_kf:.3g} (identical selections); at tau {tau_final!r} ({rep.n_pruned} of {rep.n_live} pruned) the "
+              f"compacted plan (K_max {rep.k_max_before} -> {rep.k_max_after}) vs the prune "
+              f"mask {err_comp:.3g} (tol 1e-6); {grid.shape[0]} queries within answer_bound "
+              f"(max gap - bound {over:.3g}, {int((bnd > 0).sum())} with a non-zero bound)")
+        check(err_comp <= 1e-6 and rep.n_pruned > 0,
+              "main-daemon: compacted plan vs the prune mask")
+        check(bool((gap <= bnd + 1e-5).all()), "main-daemon: a query outside answer_bound")
+
+        # warm restart from the last checkpoint, into a fresh daemon
+        last = rows[-1][0]
+        check(last.ckpt_step == len(rows), "main-daemon: the last tick did not checkpoint")
+        probe = torch.as_tensor(grid[:: DAEMON_GRID + 1], device=dev)
+        want = serve_plain(snap, probe).cpu().numpy()
+        fresh = daemon.Daemon(serve.build_problem(args), init_state(prob), plan=snap.plan,
+                              config=dataclasses.replace(cfg, ckpt_every=0))
+        got = fresh.dispatch(fresh.snapshot, probe).cpu().numpy()
+        restart_ok = (fresh.restored_step == last.ckpt_step
+                      and fresh.state_digest() == d.state_digest()
+                      and np.array_equal(got, want))
+        print(f"main-daemon warm restart: step {fresh.restored_step}, digest equal "
+              f"{fresh.state_digest() == d.state_digest()}, {probe.shape[0]} probe answers "
+              f"bitwise {np.array_equal(got, want)}")
+        check(restart_ok, "main-daemon: warm restart")
+
+        # the first ticks replayed through a daemon with plan engines
+        rp_dir = tempfile.mkdtemp(prefix="daemon_replay_")
+        try:
+            replay = daemon.Daemon(prob, state0, plan=plan0, config=dataclasses.replace(
+                cfg, engine="plan", train_engine="plan", snapshot_dir=rp_dir))
+            t0 = time.perf_counter()
+            rrows = drive_daemon(torch, replay, traffic[:DAEMON_REPLAY_TICKS], args.lam)
+            replay_s = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(rp_dir, ignore_errors=True)
+        err_ans = replay_err(rows, rrows, TICK_INTS, "replay")
+        print(f"main-daemon replay on the plain engines ({DAEMON_REPLAY_TICKS} ticks, "
+              f"{replay_s:.2f}s): receipt integers equal, answers max |err| {err_ans:.3g} "
+              f"(tol {STREAM_Z_TOL})")
+        check(err_ans <= STREAM_Z_TOL, "main-daemon: replay answers differ")
+
+        # the fault episode's first ticks (a join among them) replayed the
+        # same way, from the working pair, plan and fault generator the
+        # measured daemon held before its first faulty tick: color_sweep
+        # under drop masks at this D against the plain engine
+        gen = torch.Generator(device=dev)
+        gen.set_state(episode["gen"])
+        ep = daemon.Daemon(*episode["work"], plan=episode["plan"], generator=gen,
+                           config=dataclasses.replace(cfg, engine="plan", train_engine="plan",
+                                                      ckpt_every=0, snapshot_dir=None))
+        t0 = time.perf_counter()
+        erows = drive_daemon(torch, ep, traffic[e0:e0 + DAEMON_EPISODE_REPLAY], args.lam)
+        episode_s = time.perf_counter() - t0
+        err_ep = replay_err(rows[e0:], erows, TICK_WORK_INTS, "episode replay", offset=e0)
+        print(f"main-daemon episode replay on the plain engines (ticks {e0}-"
+              f"{e0 + DAEMON_EPISODE_REPLAY - 1}, drop {traffic[e0][3]}, {episode_s:.2f}s): "
+              f"receipt integers equal, answers max |err| {err_ep:.3g} (tol {STREAM_Z_TOL})")
+        check(err_ep <= STREAM_Z_TOL, "main-daemon: episode replay answers differ")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+    # readings
+    ticks = [r[0] for r in rows]
+    fault = [i for i, (_, _, _, drop) in enumerate(traffic) if drop > 0]
+    lat_clean = [x for i, r in enumerate(rows) if i not in fault for x in r[2]]
+    lat_fault = [x for i in fault for x in rows[i][2]]
+    p99_clean, p99_fault = pct(lat_clean, 99), pct(lat_fault, 99)
+    pruned = [r[3].pop("pruned") for r in rows]
+    split = {k: dict(mean=float(np.mean([r[3][k] for r in rows])),
+                     p50=pct([r[3][k] for r in rows], 50), max=max(r[3][k] for r in rows))
+             for k in rows[0][3]}
+    tick_ms = [sum(r[3].values()) for r in rows]
+    by_bucket = {}
+    for q, ms in dispatches:
+        by_bucket.setdefault(q, []).append(ms)
+    buckets = {str(q): dict(n=len(v), p50=pct(v, 50), p99=pct(v, 99))
+               for q, v in sorted(by_bucket.items())}
+    readings = dict(
+        ticks=len(rows), run_s=run_s, energy_tau=tau, d_max=prob.topology.d_max,
+        k_max=plan0.k_max,
+        tick_ms=dict(mean=float(np.mean(tick_ms)), p50=pct(tick_ms, 50), max=max(tick_ms)),
+        split_ms=split, dispatch_ms_by_bucket=buckets,
+        served=d.served, shed=d.shed, dispatches=len(dispatches),
+        degraded_ticks=sum(r.degraded for r in ticks),
+        rollbacks=sum(r.watchdog.rolled_back for r in ticks),
+        retries=sum(r.watchdog.retries for r in ticks), watchdog_rounds=rounds,
+        absorbed=sum(r.absorbed for r in ticks), arrival_drops=sum(r.arrival_drops for r in ticks),
+        joins=sum(r.joins for r in ticks), leaves=sum(r.leaves for r in ticks),
+        pruned_first=pruned0, pruned_by_tick=pruned, tau_final=tau_final,
+        pruned_final=rep.n_pruned,
+        latency_ms=dict(clean_p50=pct(lat_clean, 50), clean_p99=p99_clean,
+                        fault_p50=pct(lat_fault, 50), fault_p99=p99_fault,
+                        ratio=p99_fault / p99_clean, budget=DAEMON_SLO),
+        err_plain=err_plain, err_knn_fuse=err_kf, err_compact=err_comp, bound_over=over,
+        bound_nonzero=int((bnd > 0).sum()), err_replay=err_ans, err_episode_replay=err_ep,
+        k_max_compact=rep.k_max_after, replay_s=replay_s, episode_replay_s=episode_s,
+    )
+    print(f"main-daemon: {len(rows)} ticks in {run_s:.2f}s; ms per tick p50 "
+          f"{readings['tick_ms']['p50']:.2f}; split p50 " + json.dumps(
+              {k: round(v["p50"], 3) for k, v in split.items()}))
+    print(f"main-daemon: served {d.served}, shed {d.shed}; degraded ticks "
+          f"{readings['degraded_ticks']}, rollbacks {readings['rollbacks']}; fault-episode "
+          f"p99 {p99_fault:.2f} ms vs clean p99 {p99_clean:.2f} ms: ratio "
+          f"{p99_fault / p99_clean:.3f} (the reference's budget {DAEMON_SLO}, not gated)")
+    print("main-daemon: dispatch ms by bucket " + json.dumps(
+        {q: [round(v["p50"], 3), round(v["p99"], 3)] for q, v in buckets.items()}))
+    return launches, readings, tau
+
+
+def run_daemon_cli(torch) -> dict:
+    """The reference CI's kill-and-warm-restart step on the card: the daemon's
+    CLI checkpointing every tick, SIGKILLed after two checkpoints, then
+    ``--verify-restart``."""
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    snap = tempfile.mkdtemp(prefix="daemon_cli_")
+    base = [sys.executable, "-m", "repro_torch.launch.daemon"] + DAEMON_CLI
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(base + ["--ticks", "200", "--tick-sleep", "0.2",
+                                    "--snapshot-dir", snap],
+                            env=env, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        deadline = time.time() + 120
+        while time.time() < deadline and proc.poll() is None:
+            if sum(f.startswith("probe_") for f in os.listdir(snap)) >= 2:
+                break
+            time.sleep(0.01)
+        early = proc.poll()
+        time.sleep(0.05)  # inside the tick's sleep, after its probe file
+        proc.send_signal(signal.SIGKILL)
+    finally:
+        proc.kill()
+        _, err = proc.communicate()
+    check(early is None, f"main-daemon CLI exited early: {err[-2000:]!r}")
+    steps = sorted(f for f in os.listdir(snap) if f.startswith("step_"))
+    out = subprocess.run(base + ["--ticks", "0", "--snapshot-dir", snap, "--verify-restart"],
+                         env=env, cwd=HERE, capture_output=True, text=True, timeout=180)
+    shutil.rmtree(snap, ignore_errors=True)
+    verified = [ln for ln in out.stdout.splitlines() if "warm restart verified" in ln]
+    print(f"main-daemon CLI: SIGKILL after {len(steps)} checkpoints; " + (
+        verified[0] if verified else f"restart failed: {out.stderr[-2000:]}"))
+    check(out.returncode == 0 and verified and len(steps) >= 2, "main-daemon: CLI warm restart")
+    return dict(checkpoints=len(steps), cli_s=time.perf_counter() - t0)
+
+
+def run_prune_launcher(torch, mods, tau: float) -> tuple[dict, dict]:
+    """The field launcher at the benched geometry with --energy_tau, launches
+    counted from 0: knn_fuse serves the compacted plan."""
+    from repro_torch.launch import serve
+
+    argv = main_args()[0] + ["--energy_tau", repr(tau)]
+    args = serve.parser().parse_args(argv)
+    print("main-prune: python -m repro_torch.launch.serve " + " ".join(argv))
+    for mod in mods.values():
+        mod.launches = 0
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = {name: mod.launches for name, mod in mods.items()}
+    rep, plan = res["prune"], res["pruned_plan"]
+    print("main-prune: kernel launches " + json.dumps(launches)
+          + f"; K_max {rep.k_max_before} -> {rep.k_max_after}, pruned {rep.n_pruned} of "
+          f"{rep.n_live} live sensors at tau {tau!r}")
+    expected = dict({name: 0 for name in mods}, color_step=res["train_calls"],
+                    knn_fuse=serve.TIMED_CALLS, kernel_matvec=serve.TIMED_CALLS)
+    check(launches == expected, f"main-prune: launches {launches}, expected {expected}")
+    check(plan.k_max == rep.k_max_after < rep.k_max_before and 0 < rep.n_pruned < rep.n_live,
+          "main-prune: the plan was not compacted")
+    # the kernel on the compacted plan against its plain version, on the
+    # inputs of the launcher's request; the served answers are the kernel's
+    prob, state = res["problem"], res["state"]
+    ins = knn_inputs(torch, prob, state, 0, seed=0, xq=res["xq"], plan=plan)[0]
+    err, sel = compare_knn(torch, ins, prob.alive, prob.kernel.gamma, args.k, "compacted plan",
+                           witness=True, served=res["knn"])
+    print(f"main-prune: knn_fuse on the compacted plan (Q={ins[0].shape[0]}, K_max "
+          f"{plan.k_max}): identical selections ({int((sel >= 0).sum())} picks), served answers "
+          f"the kernel's, max |err| vs knn_fuse_ref {err:.3g}")
+    return launches, dict(k_max_before=rep.k_max_before, k_max_after=rep.k_max_after,
+                          pruned=rep.n_pruned, live=rep.n_live, tau=tau,
+                          knn_request_ms=res["knn_s"] * 1e3, knn_fuse_err=err)
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: the LM path.
 # ---------------------------------------------------------------------------
 
@@ -1983,7 +2503,8 @@ def run() -> int:
               "a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
-    from repro_torch.core import colored_sweep, fusion, init_state, make_serving_plan
+    from repro_torch.core import (colored_sweep, fusion, init_state, make_serving_plan,
+                                  representer_energy)
     from repro_torch.kernels import _build, color_step, gram, kernel_matvec, knn_fuse, ssd_intra
     from repro_torch.launch import serve
 
@@ -2101,6 +2622,16 @@ def run() -> int:
     fault_readings["phase_s"] = time.perf_counter() - t0
     print("main-faults: " + json.dumps(fault_readings))
 
+    # 3e. the serving daemon, then the launcher's --energy_tau ---------------
+    t0 = time.perf_counter()
+    daemon_launches, daemon_readings, _ = run_daemon(torch, mods)
+    daemon_readings["cli"] = run_daemon_cli(torch)
+    live = representer_energy(prob, state)[: prob.n][prob.alive[: prob.n]]
+    prune_launches, daemon_readings["prune"] = run_prune_launcher(
+        torch, mods, float(torch.quantile(live, DAEMON_PRUNE_Q)))
+    daemon_readings["phase_s"] = time.perf_counter() - t0
+    print("main-daemon: " + json.dumps(daemon_readings))
+
     # 4. the LM path through the port's launcher -----------------------------
     print("main-lm: python -m repro_torch.launch.serve " + " ".join(LM_ARGV))
     for mod in mods.values():
@@ -2128,7 +2659,8 @@ def run() -> int:
     lm_readings = compare_lm(torch, lm)
     # each path's launches, counted from 0 around its run (rbf_gram: on none)
     by_path = {"field": launches, "stream": stream_launches, "churn": churn_launches,
-               "faults": fault_launches, "lm": lm_launches}
+               "faults": fault_launches, "daemon": daemon_launches, "prune": prune_launches,
+               "lm": lm_launches}
 
     # 5. report --------------------------------------------------------------
     meta = {

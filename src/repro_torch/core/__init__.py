@@ -7,6 +7,7 @@ from . import (
     kernels_math,
     monitor,
     plans,
+    pruning,
     serving,
     sn_train,
     streaming,
@@ -17,6 +18,13 @@ from .faults import FaultModel, faulty_sweep, make_fault_model
 from .kernels_math import Kernel
 from .monitor import WatchdogConfig, WatchdogReceipt, watch_sweeps
 from .plans import LifecycleLayout
+from .pruning import (
+    PruneReport,
+    answer_bound,
+    prune_mask,
+    prune_plan,
+    representer_energy,
+)
 from .serving import (
     ServingPlan,
     make_serving_plan,

@@ -289,3 +289,14 @@ def knn_fuse(
             compute_dtype=cdt,
         )
     return out if problem.batched else out[0]
+
+
+# Representer pruning operates on ServingPlans; it lives in core.pruning and
+# is re-exported here, as the reference does.
+from .pruning import (  # noqa: E402
+    PruneReport,
+    answer_bound,
+    prune_mask,
+    prune_plan,
+    representer_energy,
+)

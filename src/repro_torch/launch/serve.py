@@ -1,5 +1,12 @@
-"""Serving launcher of the port: field mode (build -> train -> serve) and LM
-mode (prefill + greedy decode).
+"""Serving launcher of the port: field mode (build -> train -> serve), daemon
+mode (the long-lived serving loop) and LM mode (prefill + greedy decode).
+
+``--mode daemon`` is the serving loop of ``repro_torch.launch.daemon``:
+coalesced bucketed queries against a published snapshot while supervised
+training ticks (watchdog, checkpoints, fault drills, representer pruning)
+run behind it.  All other flags are the daemon's own (``python -m
+repro_torch.launch.daemon --help``).  ``--hardened-env`` re-execs the
+launcher once under ``hardened_env``, in any mode.
 
 B independent fields over one sensor network are trained with the colored
 SN-Train sweep, then one query grid is answered under each rule given to
@@ -49,8 +56,12 @@ train call, as in the reference; it prints the watchdog receipt and its
 ``watchdog.json:`` twin, and ``--stream``, ``--churn`` and the requests
 follow on the supervised state.
 
-Pruning (``--energy_tau``) and the daemon of the reference launcher are
-not ported yet and refuse to run.
+``--energy_tau TAU`` compacts the kNN query plan offline, as the reference
+does: ``pruning.prune_plan`` drops the sensors whose coefficient energy is
+at most TAU (on the churn trace's repaired plan under ``--churn``) and the
+kNN request is served through the compacted plan, at its smaller
+``K_max``; the ``query[...]`` line reports ``tau=TAU pruned n/m``.  The conn
+route and ``--engine dense`` are not pruned, as in the reference.
 
 Examples (on the GPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --mode field \\
@@ -66,6 +77,11 @@ Examples (on the GPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --mode field \\
     --fields 16 --sensors 1000 --dim 2 --radius 0.0949 --sweeps 30 \\
     --queries 4096 --fusion knn conn --k 3 --faults drop=0.1,burst=0.05:0.4:0.5
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode field \\
+    --fields 16 --sensors 1000 --dim 2 --radius 0.0949 --sweeps 30 \\
+    --queries 4096 --fusion knn conn --k 3 --energy_tau 0.05
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode daemon \\
+    --sensors 40 --fields 3 --ticks 20 --ckpt-every 1 --snapshot-dir /tmp/snap
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
     --arch mamba2-370m --variant full --batch 4 --prompt_len 512 --gen 32
 """
@@ -76,6 +92,8 @@ import argparse
 import dataclasses
 import functools
 import json
+import os
+import sys
 import time
 
 import numpy as np
@@ -96,12 +114,60 @@ from ..core import (
     plan_add_sensor,
     plan_remove_sensor,
     plans,
+    pruning,
     streaming,
     uniform_sensors,
 )
 from ..kernels import _build
 from ..kernels.ops import kernel_matvec
 from ..models import decode_step, init_cache, init_params, prefill
+
+
+# Hardened launch environment (the reference's HomebrewNLP run.sh pattern):
+# tcmalloc beats glibc malloc under a daemon's sustained small allocations,
+# and the TCMALLOC threshold silences its large-allocation reports.
+_TCMALLOC_PATHS = (
+    "/usr/lib/x86_64-linux-gnu/libtcmalloc.so.4",
+    "/usr/lib/x86_64-linux-gnu/libtcmalloc_minimal.so.4",
+    "/usr/lib/libtcmalloc.so.4",
+    "/usr/local/lib/libtcmalloc.so.4",
+)
+_HARDENED_GUARD = "_REPRO_HARDENED_ENV"
+
+
+def hardened_env(base=None) -> tuple[dict, list[str]]:
+    """The hardened serving environment; returns ``(env, notes)``.
+
+    Never overrides values the caller already exported, and skips the
+    tcmalloc preload with a note, not an error, when no known library path
+    exists.  The reference also sets ``XLA_FLAGS`` and
+    ``TF_CPP_MIN_LOG_LEVEL``; they configure XLA, which the port does not
+    run, so they are left out.
+    """
+    env = dict(os.environ if base is None else base)
+    notes = []
+    lib = next((p for p in _TCMALLOC_PATHS if os.path.exists(p)), None)
+    if lib is not None:
+        pre = env.get("LD_PRELOAD", "")
+        if lib not in pre.split(":"):
+            env["LD_PRELOAD"] = f"{lib}:{pre}" if pre else lib
+        env.setdefault("TCMALLOC_LARGE_ALLOC_REPORT_THRESHOLD", "60000000000")
+        notes.append(f"tcmalloc={lib}")
+    else:
+        notes.append("tcmalloc absent (preload skipped)")
+    return env, notes
+
+
+def _reexec_hardened(argv: list[str]) -> None:
+    """Replace this process with the launcher on ``argv`` under the hardened env.
+
+    ``LD_PRELOAD`` only takes effect at process start, so the flag re-execs
+    the command once; the guard variable stops the loop.
+    """
+    env, notes = hardened_env()
+    env[_HARDENED_GUARD] = "1"
+    print("hardened-env: " + "; ".join(notes), flush=True)
+    os.execve(sys.executable, [sys.executable, "-m", "repro_torch.launch.serve"] + argv, env)
 
 
 def _sync(dev: torch.device) -> None:
@@ -166,10 +232,10 @@ def serve_fields(args: argparse.Namespace) -> dict:
     receipt).  With ``--stream`` or ``--churn``, ``problem`` and ``state``
     are the streamed, churned and refreshed ones the queries ran on;
     ``stream`` holds what ``stream_fields`` returns and ``churn`` what
-    ``churn_fields`` returns.
+    ``churn_fields`` returns.  With ``--energy_tau``, ``prune`` holds the
+    ``PruneReport`` and ``pruned_plan`` the compacted plan the kNN request
+    ran on.
     """
-    if args.energy_tau:
-        raise NotImplementedError("--energy_tau is not ported yet")
     dev = _device.resolve(args.device)
     b, n = args.fields, args.sensors
     rng = np.random.default_rng(args.seed)
@@ -201,7 +267,13 @@ def serve_fields(args: argparse.Namespace) -> dict:
         plan = res["churn"]["plan"]
     xq = query_grid(args, dev)
     res.update(problem=prob, state=state, xq=xq)
-    for rule, note, run in field_requests(args, prob, state, xq, plan=plan):
+    report = None
+    if args.energy_tau > 0 and "knn" in args.fusion and args.engine != "dense":
+        # offline compaction, on the churn trace's repaired plan if there is one
+        base = plan if plan is not None else make_serving_plan(prob, k=args.k)
+        plan, report = pruning.prune_plan(prob, state, base, energy_tau=args.energy_tau)
+        res.update(prune=report, pruned_plan=plan)
+    for rule, note, run in field_requests(args, prob, state, xq, plan=plan, prune=report):
         out, dt = _timed(run, dev)
         print(
             f"query[{note}]: {args.queries} points x {b} fields in {dt * 1e3:.3f}ms "
@@ -434,12 +506,14 @@ def query_grid(args: argparse.Namespace, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(xq, device=dev)
 
 
-def field_requests(args: argparse.Namespace, prob, state, xq, plan=None) -> list:
+def field_requests(args: argparse.Namespace, prob, state, xq, plan=None, prune=None) -> list:
     """(rule, note, request) per ``--fusion`` rule; a request answers the
     grid ``xq`` for all B fields.  Per-request work (plans, global
     coefficients) that depends only on the trained state is done here.
     ``plan``: the kNN query plan to serve on (default: one built now; a
-    churned problem passes its repaired plan)."""
+    churned problem passes its repaired plan, ``--energy_tau`` the
+    compacted one); ``prune``: the compaction's ``PruneReport``, named in
+    the kNN note."""
     out = []
     for rule in args.fusion:
         if rule == "knn":
@@ -453,6 +527,8 @@ def field_requests(args: argparse.Namespace, prob, state, xq, plan=None) -> list
                 compute_dtype=cdt,
             )
             note = f"knn k={args.k} engine={args.engine}"
+            if prune is not None:
+                note += f" tau={args.energy_tau:g} pruned {prune.n_pruned}/{prune.n_live}"
             if cdt is not None:
                 note += f" dtype={args.serve_dtype}"
             if plan is not None:
@@ -519,9 +595,19 @@ def serve_lm(args: argparse.Namespace) -> dict:
     return res
 
 
-def parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+def _launch_parser() -> argparse.ArgumentParser:
+    """The flags ``main`` reads before any mode's own."""
+    ap = argparse.ArgumentParser(add_help=False)
     ap.add_argument("--mode", default="field", choices=["field", "lm", "daemon"])
+    ap.add_argument("--hardened-env", action="store_true",
+                    help="re-exec under the hardened launch env (tcmalloc LD_PRELOAD), "
+                         "skipped with a note when tcmalloc is absent")
+    return ap
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0],
+                                 parents=[_launch_parser()])
     ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
     ap.add_argument("--seed", type=int, default=0)
     # --mode lm
@@ -573,17 +659,31 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--watch_tol", type=float, default=1e-3,
                     help="--faults watchdog convergence tolerance (max |dz| / max |z| "
                          "per round)")
-    # a reference flag whose feature is not ported yet: refused when set
-    ap.add_argument("--energy_tau", type=float, default=0.0, help="not ported yet")
+    ap.add_argument("--energy_tau", type=float, default=0.0,
+                    help="representer-pruning energy threshold: compact the kNN query "
+                         "plan to the sensors with coefficient energy above tau before "
+                         "serving (plan/cuda engines; 0 = off)")
     return ap
 
 
-def main(argv: list[str] | None = None) -> dict:
+def main(argv: list[str] | None = None):
+    """Run the launcher on ``argv`` (default ``sys.argv[1:]``).
+
+    Returns what ``serve_fields``, ``serve_lm`` or the daemon's ``main``
+    returns.  ``--mode daemon`` hands every other flag to
+    ``repro_torch.launch.daemon.main``.
+    """
+    argv = sys.argv[1:] if argv is None else list(argv)
+    ns, rest = _launch_parser().parse_known_args(argv)
+    if ns.hardened_env and os.environ.get(_HARDENED_GUARD) != "1":
+        _reexec_hardened(argv)  # never returns
+    if ns.mode == "daemon":
+        from . import daemon
+
+        return daemon.main(rest)
     args = parser().parse_args(argv)
     if args.mode == "lm":
         return serve_lm(args)
-    if args.mode != "field":
-        raise NotImplementedError(f"--mode {args.mode} is not ported yet")
     return serve_fields(args)
 
 

@@ -11,7 +11,8 @@ import repro_torch.core as tr
 from repro_torch import checkpoint, convert, models
 from repro_torch.configs import get_config
 from repro_torch.kernels import _build, color_step, gram, kernel_matvec, knn_fuse, ssd_intra
-from repro_torch.launch import profile_field, profile_lm, serve
+from repro_torch.core import pruning
+from repro_torch.launch import daemon, profile_field, profile_lm, serve
 
 torch.set_num_threads(1)
 
@@ -28,6 +29,8 @@ def _port_files():
 def test_port_never_imports_jax_or_the_reference():
     files = _port_files()
     assert len(files) > 10
+    for mod in (pruning, daemon):  # the modules of the daemon slice are checked too
+        assert os.path.abspath(mod.__file__) in files
     for path in files:
         with open(path) as fh:
             tree = ast.parse(fh.read(), path)
@@ -59,6 +62,11 @@ ENTRY_POINTS = {
     "serve.main churn": lambda: serve.main(["--fields", "2", "--sensors", "8", "--churn", "2"]),
     "serve.main faults": lambda: serve.main(["--fields", "2", "--sensors", "8",
                                              "--faults", "drop=0.1"]),
+    "serve.main daemon": lambda: serve.main(["--mode", "daemon", "--fields", "2",
+                                             "--sensors", "8", "--ticks", "1"]),
+    "serve.main energy_tau": lambda: serve.main(["--fields", "2", "--sensors", "8", "--fusion",
+                                                 "knn", "--energy_tau", "0.1"]),
+    "daemon.main": lambda: daemon.main(["--fields", "2", "--sensors", "8", "--ticks", "1"]),
     "make_fault_model": lambda: tr.make_fault_model(0.1),
     "parse_fault_spec": lambda: tr.faults.parse_fault_spec("drop=0.1"),
     "models.init_params": lambda: models.init_params(get_config("mamba2-370m", variant="smoke")),
@@ -134,8 +142,28 @@ def test_missing_nvcc_raises_and_names_it(monkeypatch, tmp_path):
                                   ["--faults", "drop=0.1", "--energy_tau", "0.1"],
                                   ["--energy_tau", "0.1"], ["--mode", "daemon"]])
 def test_unported_launcher_features_refuse(flag):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        serve.main(["--device", "cpu", "--fields", "2", "--sensors", "8"] + flag)
+    """Named when the port refused these launcher features.  Now that
+    ``--energy_tau`` and ``--mode daemon`` are ported, they run on the CPU
+    when asked for, and refuse only the default device on a machine
+    without CUDA."""
+    argv = ["--fields", "2", "--sensors", "8"] + flag
+    if flag[0] != "--mode":
+        argv += ["--fusion", "knn", "conn"]
+    out = serve.main(["--device", "cpu"] + argv)
+    if flag[0] == "--mode":
+        assert isinstance(out, daemon.Daemon) and out.tick_count == 10
+    else:
+        assert out["prune"].energy_tau == 0.1 and out["knn"].shape == out["conn"].shape
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve.main(argv)
+
+
+def test_daemon_entry_points_default_to_the_card():
+    assert daemon.DaemonConfig().engine == daemon.DaemonConfig().train_engine == "cuda"
+    args = daemon.parser().parse_args([])
+    assert args.device == "cuda" and args.engine == "cuda"
+    assert serve.parser().parse_args([]).device == "cuda"
 
 
 def test_lifecycle_entry_points_stay_on_the_problems_device():
