@@ -113,6 +113,33 @@ Phases, one line or more each; any failure raises and exits non-zero:
              --verify-restart; then the launcher of phase 3 with
              --energy_tau (knn_fuse on the compacted plan, held to
              knn_fuse_ref on the request's inputs);
+  3f. main-sharded the multi-device layer over an NCCL group of one (a
+             FileStore in a temporary directory) at the benched geometry,
+             launch counters set to 0 before and read after: field-sharded
+             sharded_sweep with the cuda engine (one color_sweep launch per
+             call, color_step 2), once without and once with a 10% drop mask,
+             each bitwise colored_sweep(engine="cuda"); the sensor regime on
+             field_view(prob, 0) against the plan engine (z 2e-4, coef 2e-2;
+             f64 1e-10); the sharded call's ms beside colored_sweep's, in
+             turns, and the all-gathers' ms; then allreduce_average,
+             gossip_round and neighborhood_average on mamba2-370m's full-width
+             parameters, each a bitwise identity at a world of one, with
+             consensus_sq 0 and their ms;
+  3g. main-train mamba2-370m at full width (48 layers, d_model 1024, bf16,
+             random weights from seed 0) trained with the launcher's build
+             (AdamW on its cosine schedule, lr 3e-4) at batch 8 x 128 in both
+             dp_modes over the group of one: a warm-up step, then 20 timed
+             steps, launch counters set to 0 before and read after (no kernel:
+             ssd_fused stays off, as in the reference's launcher); s/step,
+             tokens/s, the loss per step (finite, and the last below the
+             first) and peak memory; after the first step five leaves' AdamW
+             updates against a float64 recomputation of the reference's
+             formula from the gradients the step used and the moments before
+             it (moments 1e-5 relative, parameters one bf16 ulp plus 1e-6 of
+             |p| + |u|, the float32 formula's rounding where p + u cancels); then
+             ``python -m repro_torch.launch.train --arch mamba2-370m
+             --variant full --steps 3`` in a subprocess, which must print
+             ``done``;
   4. main-lm the port's launcher in LM mode: mamba2-370m at full width in
              its own bf16, random weights from seed 0, a 4 x 512 prompt
              and 32 greedy tokens, with every launch counter set to 0
@@ -123,7 +150,8 @@ Phases, one line or more each; any failure raises and exits non-zero:
              final SSM state and 4 teacher-forced decode steps, with an
              f64 run of the plain route as the witness;
   5. report  the kernels JSON line (``launches``: the sum over the field,
-             stream, churn, faults, daemon, prune and LM paths' runs, each
+             stream, churn, faults, daemon, prune, sharded, train and LM
+             paths' runs, each
              path's count beside it), the card's name and power limit, and the final
              {"ok": true, ...} line.
 
@@ -2416,6 +2444,276 @@ def run_prune_launcher(torch, mods, tau: float) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3f: the multi-device layer at a world of one on NCCL.
+# ---------------------------------------------------------------------------
+
+SHARDED_DROP = 0.1  # the delivery mask's drop rate
+
+
+def _clones(xs) -> list:
+    return [x.detach().clone() for x in xs]
+
+
+def run_sharded(torch, mods, ctx) -> tuple[dict, dict]:
+    """sharded_sweep over the NCCL group of one at the benched geometry, launch
+    counters set to 0 before and read after: field-sharded with the cuda
+    engine (one color_sweep launch per call, bitwise colored_sweep), without
+    and with a 10% drop mask; the sensor regime on field 0 against the plan
+    engine (f32 2e-4 / 2e-2, f64 1e-10); then its costs."""
+    from repro_torch.core import colored_sweep, field_view, init_state, sharded_sweep
+    from repro_torch.distributed import all_gather_into
+    from repro_torch.launch import serve
+
+    _, args = main_args()
+    prob = serve.build_problem(args, torch.float32)
+    st0 = init_state(prob)
+    sweeps, g = args.sweeps, ctx.group
+    rng = np.random.default_rng(5)
+    deliv = torch.as_tensor(rng.uniform(size=(sweeps,) + tuple(prob.nbr_idx.shape))
+                            >= SHARDED_DROP, device=prob.device)
+    fv, fs0 = field_view(prob, st0, 0)
+    for mod in mods.values():
+        mod.launches = 0
+    sh = sharded_sweep(prob, st0, g, n_sweeps=sweeps, engine="cuda")
+    sh_d = sharded_sweep(prob, st0, g, n_sweeps=sweeps, engine="cuda", delivered=deliv)
+    sh_s = sharded_sweep(fv, fs0, g, n_sweeps=sweeps)
+    torch.cuda.synchronize()
+    launches = {name: mod.launches for name, mod in mods.items()}
+    print("main-sharded: kernel launches " + json.dumps(launches)
+          + f" (2 field-sharded calls of {sweeps} sweeps, 1 sensor-regime call)")
+    expected = dict({name: 0 for name in mods}, color_step=2)
+    check(launches == expected, f"main-sharded: launches {launches}, expected {expected}")
+    out = {}
+    for tag, got, mask in (("field", sh, None), ("field+drops", sh_d, deliv)):
+        want = colored_sweep(prob, st0, n_sweeps=sweeps, engine="cuda", delivered=mask)
+        same = torch.equal(got.z, want.z) and torch.equal(got.coef, want.coef)
+        print(f"main-sharded: {tag} (B={prob.batch_size}, n={prob.n}, "
+              f"D={prob.nbr_idx.shape[1]}) engine=cuda bitwise colored_sweep: {same}")
+        check(same, f"main-sharded: {tag} sharded_sweep differs from colored_sweep")
+    check(not torch.equal(sh.z, sh_d.z), "main-sharded: the drop mask changed nothing")
+    plain = colored_sweep(fv, fs0, n_sweeps=sweeps, engine="plan")
+    out["sensor_err_z"], out["sensor_err_coef"] = max_err(sh_s.z, plain.z), max_err(
+        sh_s.coef, plain.coef)
+    prob64 = serve.build_problem(args, torch.float64)
+    fv64, fs64 = field_view(prob64, init_state(prob64), 0)
+    sh64 = sharded_sweep(fv64, fs64, g, n_sweeps=sweeps)
+    plain64 = colored_sweep(fv64, fs64, n_sweeps=sweeps, engine="plan")
+    out["sensor64_err"] = max(max_err(sh64.z, plain64.z), max_err(sh64.coef, plain64.coef))
+    print(f"main-sharded: sensor regime on field 0 vs the plan engine: f32 |dz| "
+          f"{out['sensor_err_z']:.3g}, |dcoef| {out['sensor_err_coef']:.3g}; f64 "
+          f"{out['sensor64_err']:.3g}")
+    check(out["sensor_err_z"] <= 2e-4 and out["sensor_err_coef"] <= 2e-2,
+          "main-sharded: sensor regime differs from the plan engine (f32)")
+    check(out["sensor64_err"] <= 1e-10, "main-sharded: sensor regime differs (f64)")
+    # costs: the sharded call beside colored_sweep, in turns; the all-gathers
+    sharded = lambda: sharded_sweep(prob, st0, g, n_sweeps=sweeps, engine="cuda")  # noqa: E731
+    colored = lambda: colored_sweep(prob, st0, n_sweeps=sweeps, engine="cuda")  # noqa: E731
+    ms = {"colored": [], "sharded": []}
+    for name in ("colored", "sharded", "sharded", "colored"):
+        ms[name].append(cuda_ms(sharded if name == "sharded" else colored, reps=10))
+    zbuf, cbuf = torch.empty_like(st0.z), torch.empty_like(st0.coef)
+    out["gather_ms"] = cuda_ms(lambda: (all_gather_into(zbuf, sh.z, g),
+                                        all_gather_into(cbuf, sh.coef, g)), reps=20)
+    t0 = time.perf_counter()
+    sharded_sweep(fv, fs0, g, n_sweeps=sweeps)
+    torch.cuda.synchronize()
+    out["sensor_call_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    colored_sweep(fv, fs0, n_sweeps=sweeps, engine="plan")
+    torch.cuda.synchronize()
+    out["sensor_plan_s"] = time.perf_counter() - t0
+    out.update(sharded_ms=ms["sharded"], colored_ms=ms["colored"],
+               gather_bytes=(st0.z.numel() + st0.coef.numel()) * 4)
+    print(f"main-sharded: ms per call, field-sharded {ms['sharded']} vs colored_sweep "
+          f"{ms['colored']} (engine cuda, in turns); the two all-gathers "
+          f"({out['gather_bytes']} bytes) {out['gather_ms']:.4f} ms; sensor regime "
+          f"{out['sensor_call_s']:.3f} s per call vs the plan engine {out['sensor_plan_s']:.3f} s")
+    return launches, out
+
+
+def run_consensus_lm(torch, ctx) -> dict:
+    """The gossip collectives on mamba2-370m's full-width parameters at a world
+    of one: bitwise identities, consensus_sq 0, and their times."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import consensus
+    from repro_torch.models import init_params
+
+    cfg = get_config("mamba2-370m")
+    params = init_params(cfg, LM_SEED, device=ctx.device)
+    before = _clones(tree.leaves(params))
+    g, out = ctx.group, {}
+    for name, fn in (("allreduce_average", lambda: consensus.allreduce_average(params, g)),
+                     ("gossip_round", lambda: consensus.gossip_round(params, g, [[0]], 3)),
+                     ("neighborhood_average",
+                      lambda: consensus.neighborhood_average(params, g, 1))):
+        check(fn() is params, f"main-sharded: {name} returned another module")
+        same = all(torch.equal(a, b) for a, b in zip(tree.leaves(params), before))
+        check(same, f"main-sharded: {name} is not a bitwise identity at a world of one")
+        out[name + "_ms"] = cuda_ms(fn, reps=5, warmup=1)
+    sq = float(consensus.consensus_sq_distance(params, g))
+    check(sq == 0.0, f"main-sharded: consensus_sq {sq} at a world of one")
+    nbytes = sum(x.numel() * x.element_size() for x in before)
+    print(f"main-sharded: {cfg.name} parameters ({len(before)} leaves, {nbytes} bytes, "
+          f"{cfg.dtype}): allreduce_average, gossip_round, neighborhood_average bitwise "
+          f"identities, consensus_sq 0.0; ms " + json.dumps(
+              {k: round(v, 4) for k, v in out.items()}))
+    return dict(out, bytes=nbytes)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3g: the data-parallel train step at full width.
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR, TRAIN_STEPS = 8, 128, 3e-4, 20  # the launcher's defaults
+ADAMW_CHECK_LEAVES = ("embed", "layers.0.ssm.in_proj", "layers.47.ssm.out_proj",
+                      "layers.23.ssm.A_log", "final_norm.scale")
+
+
+def check_adamw(torch, names, p0, grads, state0, state1, p1, lr: float) -> dict:
+    """The step's AdamW update recomputed in float64 from the gradients it
+    was given and the moments before it: moments to 1e-5 relative, the new
+    bf16 parameters to one bf16 ulp (plus 1e-6 of |p| + |u|)."""
+    b1, b2, eps, wd = 0.9, 0.95, 1e-8, 0.1  # repro.optim.adamw's defaults
+    g64 = [g.double() for g in grads]
+    norm = sum(float((g * g).sum()) for g in g64) ** 0.5
+    scale = min(1.0, 1.0 / (norm + 1e-9))
+    step = int(state1["step"])
+    out = {}
+    for name in ADAMW_CHECK_LEAVES:
+        i = names.index(name)
+        g = g64[i] * scale
+        mu = b1 * state0["mu"][i].double() + (1 - b1) * g
+        nu = b2 * state0["nu"][i].double() + (1 - b2) * g * g
+        u = -lr * ((mu / (1 - b1 ** step)) / ((nu / (1 - b2 ** step)).sqrt() + eps)
+                   + wd * p0[i].double())
+        want = p0[i].double() + u
+        # one bf16 ulp of the result, and the float32 formula's own rounding
+        # (its bias corrections are float32, ~2.4e-7 relative), which shows
+        # where p + u cancels
+        ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want.float()).exponent - 8)
+        allowed = ulp + 1e-6 * (p0[i].double().abs() + u.abs())
+        err_p = float(((p1[i].double() - want).abs() / allowed).max())
+        err_m = max(max_err(state1["mu"][i], mu) / max(float(mu.abs().max()), 1e-30),
+                    max_err(state1["nu"][i], nu) / max(float(nu.abs().max()), 1e-30))
+        out[name] = dict(param_over_bound=err_p, moments_rel=err_m)
+        check(err_p <= 1.0 and err_m <= 1e-5,
+              f"main-train: AdamW update of {name} differs from the float64 formula: "
+              f"{err_p} of its bound, moments {err_m}")
+    return out
+
+
+def run_train(torch, mods, ctx) -> tuple[dict, dict]:
+    """mamba2-370m at full width (bf16, random weights from seed 0) trained
+    with the launcher's build (AdamW on its cosine schedule) at batch 8 x 128,
+    in both dp_modes over the NCCL group of one: a warm-up step, then 20
+    timed steps; launch counters set to 0 before and read after (no kernel
+    of the port is on this path: ssd_fused stays off, as in the reference's
+    launcher); then the launcher itself in a subprocess."""
+    from repro_torch import optim, tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_lm_stream
+    from repro_torch.launch import train
+    from repro_torch.models import init_params, make_train_step
+    from repro_torch.optim import cosine_warmup
+
+    cfg = get_config("mamba2-370m")
+    check(not cfg.ssd_fused and cfg.dtype == "bfloat16" and cfg.n_layers == 48,
+          "main-train: not the full-width mamba2-370m")
+    steps = TRAIN_STEPS + 1
+    stream = synthetic_lm_stream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [{k: torch.as_tensor(v, device=ctx.device) for k, v in stream.batch_at(i).items()}
+               for i in range(steps)]
+    # the launcher's schedule (train.build) at the first step
+    lr_1 = float(cosine_warmup(TRAIN_LR, min(100, steps // 10 + 1), steps)(1))
+    for mod in mods.values():
+        mod.launches = 0
+    readings = {}
+    for dp_mode in ("allreduce", "sop_gossip"):
+        opt, _ = train.build(cfg, dp_mode=dp_mode, lr=TRAIN_LR, steps=steps, group=ctx.group,
+                             world=ctx.world)
+        seen = {}
+
+        def update(grads, state, params, opt=opt, seen=seen):
+            seen["grads"] = [gr.detach().clone() for gr in grads]
+            return opt.update(grads, state, params)
+
+        rec = optim.Optimizer(init=opt.init, update=update)
+        sched = [[0]] if dp_mode == "sop_gossip" else None  # train.build's, at a world of one
+        step = make_train_step(cfg, rec, group=ctx.group, dp_mode=dp_mode,
+                               gossip_schedule=sched)
+        params = init_params(cfg, LM_SEED, device=ctx.device)
+        names = [n for n, _ in params.named_parameters()]
+        state = opt.init(params)
+        p0 = _clones(tree.leaves(params))
+        s0 = {"mu": _clones(state["mu"]), "nu": _clones(state["nu"])}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batches[0], 0)  # the warm-up step
+        losses = [float(m["loss"])]
+        warm_s = time.perf_counter() - t0
+        adamw = check_adamw(torch, names, p0, seen["grads"], s0, state,
+                            tree.leaves(params), lr_1)
+        del p0, s0
+        times = []
+        for i in range(1, steps):
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batches[i], i)
+            losses.append(float(m["loss"]))  # one host read per step, as the launcher logs
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        check(all(np.isfinite(losses)), f"main-train {dp_mode}: non-finite loss {losses}")
+        check(losses[-1] < losses[0], f"main-train {dp_mode}: the loss did not fall: {losses}")
+        if dp_mode == "sop_gossip":
+            check(float(m["consensus_sq"]) == 0.0, "main-train: consensus_sq at a world of one")
+        s_step = float(np.mean(times))
+        readings[dp_mode] = dict(
+            s_per_step=s_step, s_per_step_p50=float(np.median(times)), warmup_s=warm_s,
+            tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / s_step, peak_bytes=peak, losses=losses,
+            adamw=adamw)
+        print(f"main-train: {cfg.name} dp={dp_mode} world={ctx.world} batch {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ}: {s_step:.4f} s/step ({TRAIN_BATCH * TRAIN_SEQ / s_step:.0f} "
+              f"tokens/s) over {TRAIN_STEPS} steps after a {warm_s:.2f} s warm-up step; peak "
+              f"memory {peak / 2**30:.2f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+        print(f"main-train: dp={dp_mode} loss per step " + json.dumps(
+            [round(x, 4) for x in losses]))
+        print(f"main-train: dp={dp_mode} AdamW after one step vs the float64 formula "
+              "(the new parameter's error over one bf16 ulp + 1e-6 (|p| + |u|), the "
+              "moments' relative error): "
+              + json.dumps(adamw))
+        del params, state, m, seen
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = {name: mod.launches for name, mod in mods.items()}
+    print("main-train: kernel launches " + json.dumps(launches))
+    check(all(v == 0 for v in launches.values()),
+          f"main-train: a kernel without a backward was launched: {launches}")
+    readings["launcher"] = run_train_launcher(torch)
+    return launches, readings
+
+
+TRAIN_ARGV = ["--arch", "mamba2-370m", "--variant", "full", "--steps", "3", "--batch", "8",
+              "--seq", "128", "--dp_mode", "sop_gossip", "--log_every", "1"]
+
+
+def run_train_launcher(torch) -> dict:
+    """``python -m repro_torch.launch.train`` in a subprocess (one rank per
+    card, NCCL): it must print ``done``."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    print("main-train: python -m repro_torch.launch.train " + " ".join(TRAIN_ARGV))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train"] + TRAIN_ARGV,
+                         env=env, cwd=HERE, capture_output=True, text=True, timeout=600)
+    lines = out.stdout.strip().splitlines()
+    for line in lines:
+        print("main-train launcher: " + line)
+    check(out.returncode == 0 and lines and lines[-1] == "done",
+          f"main-train: the launcher failed: {out.stderr[-2000:]}")
+    return dict(launcher_s=time.perf_counter() - t0, lines=len(lines))
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: the LM path.
 # ---------------------------------------------------------------------------
 
@@ -2503,9 +2801,12 @@ def run() -> int:
               "a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch.distributed as dist
+
     from repro_torch.core import (colored_sweep, fusion, init_state, make_serving_plan,
                                   representer_energy)
     from repro_torch.kernels import _build, color_step, gram, kernel_matvec, knn_fuse, ssd_intra
+    from repro_torch.distributed import init_group
     from repro_torch.launch import serve
 
     kind = torch.cuda.get_device_name(0)
@@ -2632,6 +2933,21 @@ def run() -> int:
     daemon_readings["phase_s"] = time.perf_counter() - t0
     print("main-daemon: " + json.dumps(daemon_readings))
 
+    # 3f. the multi-device layer over an NCCL group of one -------------------
+    ctx = init_group(0, 1, device="cuda")
+    t0 = time.perf_counter()
+    sharded_launches, sharded_readings = run_sharded(torch, mods, ctx)
+    sharded_readings["lm_collectives"] = run_consensus_lm(torch, ctx)
+    sharded_readings["phase_s"] = time.perf_counter() - t0
+    print("main-sharded: " + json.dumps(sharded_readings))
+
+    # 3g. the data-parallel train step, then the training launcher ------------
+    t0 = time.perf_counter()
+    train_launches, train_readings = run_train(torch, mods, ctx)
+    train_readings["phase_s"] = time.perf_counter() - t0
+    print("main-train: " + json.dumps(train_readings))
+    dist.destroy_process_group()
+
     # 4. the LM path through the port's launcher -----------------------------
     print("main-lm: python -m repro_torch.launch.serve " + " ".join(LM_ARGV))
     for mod in mods.values():
@@ -2660,7 +2976,7 @@ def run() -> int:
     # each path's launches, counted from 0 around its run (rbf_gram: on none)
     by_path = {"field": launches, "stream": stream_launches, "churn": churn_launches,
                "faults": fault_launches, "daemon": daemon_launches, "prune": prune_launches,
-               "lm": lm_launches}
+               "sharded": sharded_launches, "train": train_launches, "lm": lm_launches}
 
     # 5. report --------------------------------------------------------------
     meta = {

@@ -1,7 +1,10 @@
-"""SN-Train (paper Sec. 3) in PyTorch: build, sweeps, streaming, fusion, serving."""
+"""SN-Train (paper Sec. 3) in PyTorch: build, sweeps, streaming, fusion,
+serving; the generic SOP machinery (``sop``) and SOP-consensus gossip over
+``torch.distributed`` (``consensus``)."""
 
 from . import (
     centralized,
+    consensus,
     faults,
     fusion,
     kernels_math,
@@ -10,6 +13,7 @@ from . import (
     pruning,
     serving,
     sn_train,
+    sop,
     streaming,
     topology,
 )
@@ -46,6 +50,7 @@ from .sn_train import (
     robust_sweep,
     robust_sweep_links,
     serial_sweep,
+    sharded_sweep,
     weighted_norm_sq,
     weighted_norm_sq_hetero,
     weighted_sweep,

@@ -2,8 +2,9 @@
 
 Port of ``repro.core.sn_train`` (the build, the serial and colored
 engines, the sensor-level robust engine ``robust_sweep``, ``field_view``,
-and the single-field serial engines ``random_sweep``,
-``robust_sweep_links`` and ``weighted_sweep``).
+the single-field serial engines ``random_sweep``,
+``robust_sweep_links`` and ``weighted_sweep``, and ``sharded_sweep`` over a
+``torch.distributed`` group).
 Each sensor ``s`` keeps a local function
 ``f_s = sum_{j in N_s} c_{s,j} K(., x_j)`` and the network shares a message
 vector ``z``.  One projection at s
@@ -44,8 +45,10 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import device as _device
+from ..distributed import all_gather_into
 from . import plans
 from .kernels_math import Kernel
 from .plans import LifecycleLayout
@@ -634,6 +637,106 @@ def colored_sweep(
         state.z[None], state.coef[None], n_sweeps, engine, alive, delivered,
     )
     return SNTrainState(z=z[0], coef=coef[0])
+
+
+# ---------------------------------------------------------------------------
+# Sharded engine: sensors (single-field) or fields (batched) distributed over
+# the ranks of a torch.distributed group, one process per rank.
+# ---------------------------------------------------------------------------
+
+
+def sharded_sweep(
+    problem: SNTrainProblem,
+    state: SNTrainState,
+    group=None,
+    *,
+    n_sweeps: int,
+    engine: str = "plan",
+    delivered: torch.Tensor | None = None,
+) -> SNTrainState:
+    """``colored_sweep`` distributed over the ranks of ``group`` (default: the
+    default group).  Every rank passes the same replicated problem and state
+    and gets back the whole replicated state.
+
+    Single-field: each color's members are split over the ranks.  A rank
+    solves its contiguous shard; because a color's neighborhoods are
+    disjoint, the shards touch disjoint slots, so two rank-ordered
+    all-gathers assemble the color's touched values, (M*D,) fresh messages
+    and (M, D) fresh coefficients, and every rank applies the color's static
+    scatter plan itself.  Members are padded to a multiple of the world size
+    by appending, so a member's flat position ``m*D + k`` stays the plans'
+    coordinate.  Only the plan transport exists here.
+
+    Batched: the field axis is split instead; each rank runs the colored
+    engine (any of ``ENGINES``; with ``"cuda"`` one ``color_sweep`` launch)
+    on its B/W fields, and one all-gather returns them.
+
+    delivered: optional (n_sweeps, n+1, D) bool link-delivery mask,
+    replicated in both regimes (delivery is a property of the physical
+    lane); dropped messages hold their last value, all-True is bitwise
+    fault-free.  A world of one is ``colored_sweep`` bitwise.
+    """
+    if problem.batched:
+        return _sharded_sweep_fields(problem, state, group, n_sweeps=n_sweeps,
+                                     engine=engine, delivered=delivered)
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+    if engine != "plan":
+        raise NotImplementedError(
+            "single-field sharded_sweep implements the plan transport only "
+            "(the psum payload IS the plan's touched-slot buffer); engine "
+            "selection applies to batched, field-sharded problems"
+        )
+    if delivered is not None and delivered.shape[0] != n_sweeps:
+        raise ValueError(
+            f"delivered has {delivered.shape[0]} sweeps, expected {n_sweeps}"
+        )
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    n_colors, m_max = problem.color_members.shape
+    m_local = -(-m_max // world)
+    pad = m_local * world - m_max
+    members = torch.cat([problem.color_members, torch.full(
+        (n_colors, pad), problem.n, dtype=problem.color_members.dtype,
+        device=problem.device)], dim=1)  # (n_colors, m_pad)
+    mask = torch.cat([problem.color_mask, torch.zeros(
+        (n_colors, pad), dtype=torch.bool, device=problem.device)], dim=1)
+    live_full = mask & problem.alive[members]
+    lo, hi = rank * m_local, (rank + 1) * m_local
+    alive_z = problem.alive_z
+    d = problem.nbr_idx.shape[1]
+    z, coef = state.z[None], state.coef[None]
+    for t in range(n_sweeps):
+        for c in range(n_colors):
+            _, coef_new, z_new = _color_solve(
+                problem.nbr_idx, problem.lam_pad, problem.alive, alive_z,
+                problem.nbr_mask[None], problem.gram[None], problem.chol[None],
+                z, coef, members[c, lo:hi], mask[c, lo:hi],
+            )
+            z_full = all_gather_into(
+                z.new_empty((world * m_local * d,)), z_new[0].reshape(-1), group)
+            c_full = all_gather_into(coef.new_empty((world * m_local, d)), coef_new[0], group)
+            deliv_flat = None if delivered is None else delivered[t][members[c]].reshape(-1)
+            z, coef = _apply_plan(
+                z, coef, z_full[None], c_full[None], problem.plan_z[c],
+                problem.plan_coef[c], live_full[c], alive_z, deliv_flat,
+            )
+    return SNTrainState(z=z[0], coef=coef[0])
+
+
+def _sharded_sweep_fields(problem, state, group, *, n_sweeps, engine="plan", delivered=None):
+    """Field-data-parallel split of the batched colored engine; the
+    replicated ``delivered`` is shared by every rank's fields."""
+    b = problem.batch_size
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    if b % world != 0:
+        raise ValueError(f"batch size {b} must divide over {world} devices")
+    lo, hi = rank * (b // world), (rank + 1) * (b // world)
+    z, coef = _colored_core(
+        problem, problem.nbr_mask[lo:hi], problem.gram[lo:hi], problem.chol[lo:hi],
+        state.z[lo:hi], state.coef[lo:hi], n_sweeps, engine, delivered=delivered,
+    )
+    return SNTrainState(z=all_gather_into(torch.empty_like(state.z), z, group),
+                        coef=all_gather_into(torch.empty_like(state.coef), coef, group))
 
 
 # ---------------------------------------------------------------------------

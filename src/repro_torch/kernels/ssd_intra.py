@@ -77,8 +77,17 @@ def ssd_intra(
     share one block; two blocks of a cluster (2 ``block_h`` heads) share one
     set of CB tiles, so CB is formed ceil(H / block_h) / 2 times per chunk.
     H need not be a multiple of it.  CPU tensors run the plain version.
+
+    The kernel has no backward (nor has the reference's): an input that
+    requires grad raises on every device, so a train step cannot get
+    gradients through the plain version on the CPU and none on the card.
     """
     global launches
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, da_cum, bmat, cmat)):
+        raise RuntimeError(
+            "ssd_intra has no backward: train with ssd_fused=False (the plain "
+            "ssd_chunked), as the reference's training launcher does"
+        )
     if x.device.type == "cpu":
         return ssd_intra_ref(x, dt, da_cum, bmat, cmat, chunk)
     req = _build.require

@@ -1,6 +1,7 @@
 """The port's rules: no JAX, an explicit device, no fallback from a kernel."""
 
 import ast
+import inspect
 import os
 
 import numpy as np
@@ -8,11 +9,18 @@ import pytest
 import torch
 
 import repro_torch.core as tr
-from repro_torch import checkpoint, convert, models
+from repro_torch import checkpoint, convert, data, distributed, models, optim, tree
 from repro_torch.configs import get_config
 from repro_torch.kernels import _build, color_step, gram, kernel_matvec, knn_fuse, ssd_intra
-from repro_torch.core import pruning
-from repro_torch.launch import daemon, profile_field, profile_lm, serve
+from repro_torch.core import consensus, pruning, sop
+from repro_torch.data import lm
+from repro_torch.launch import (daemon, multi_gpu, profile_field, profile_lm, profile_train,
+                                serve, train)
+from repro_torch.optim import optimizers, schedules
+
+# the modules of the multi-device and training slice
+TRAIN_SLICE = (sop, consensus, distributed, tree, optim, optimizers, schedules, data, lm,
+               train, profile_train, multi_gpu, models.model)
 
 torch.set_num_threads(1)
 
@@ -29,7 +37,7 @@ def _port_files():
 def test_port_never_imports_jax_or_the_reference():
     files = _port_files()
     assert len(files) > 10
-    for mod in (pruning, daemon):  # the modules of the daemon slice are checked too
+    for mod in (pruning, daemon) + TRAIN_SLICE:  # the later slices' modules are checked too
         assert os.path.abspath(mod.__file__) in files
     for path in files:
         with open(path) as fh:
@@ -74,6 +82,12 @@ ENTRY_POINTS = {
                                          "--prompt_len", "4", "--gen", "1"]),
     "profile_lm.main": lambda: profile_lm.main([]),
     "profile_field.main": lambda: profile_field.main([]),
+    "train.main": lambda: train.main(["--variant", "smoke", "--steps", "1"]),
+    "profile_train.main": lambda: profile_train.main([]),
+    "multi_gpu.main": lambda: multi_gpu.main([]),
+    "distributed.init_group": lambda: distributed.init_group(0, 1),
+    "distributed.rank_device": lambda: distributed.rank_device(0),
+    "distributed.spawn": lambda: distributed.spawn(print, 2),
 }
 
 
@@ -199,3 +213,46 @@ def test_fault_entry_points_stay_on_the_problems_device(tmp_path):
     tensors = [out.z, out.coef, state2.z, state2.coef, s3.z, s3.coef]
     tensors += [v for p in (prob2, p3) for v in vars(p).values() if isinstance(v, torch.Tensor)]
     assert all(t.device.type == "cpu" for t in tensors)
+
+
+def test_new_entry_points_default_to_the_card():
+    """Every function of the training slice that takes ``device=`` defaults
+    to "cuda"; the launcher's flag too."""
+    seen = []
+    for mod in TRAIN_SLICE:
+        for name, fn in vars(mod).items():
+            public = inspect.isfunction(fn) and not name.startswith("_")
+            if public and fn.__module__ == mod.__name__:
+                param = inspect.signature(fn).parameters.get("device")
+                if param is not None:
+                    assert param.default == "cuda", f"{mod.__name__}.{name}"
+                    seen.append(name)
+    assert {"init_group", "rank_device", "spawn"} <= set(seen)
+    for launcher in (train, multi_gpu):
+        assert launcher.parser().parse_args([]).device == "cuda"
+        assert launcher.parser().parse_args([]).world is None
+
+
+_GUARDED = {"all_to_all_single", "all_reduce", "all_gather_into", "all_gather_into_tensor",
+            "all_gather_single", "barrier", "init_process_group", "color_sweep",
+            "color_step", "knn_fuse_fused", "kernel_matvec_batched", "ssd_intra", "rbf_gram",
+            "sharded_sweep", "pairwise_project", "gossip_round", "allreduce_average",
+            "neighborhood_average", "consensus_sq_distance"}
+
+
+def test_no_try_around_a_collective_or_a_kernel_call():
+    """The training slice's modules hold no ``try`` at all; in the whole port
+    no ``try`` body calls a collective or a kernel wrapper."""
+    slice_files = {os.path.abspath(mod.__file__) for mod in TRAIN_SLICE}
+    for path in _port_files():
+        with open(path) as fh:
+            tree_ = ast.parse(fh.read(), path)
+        for node in ast.walk(tree_):
+            if not isinstance(node, ast.Try):
+                continue
+            assert path not in slice_files, f"{path}:{node.lineno}: a try in the slice"
+            for sub in (n for stmt in node.body for n in ast.walk(stmt)):
+                if isinstance(sub, ast.Call):
+                    f = sub.func
+                    name = f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", "")
+                    assert name not in _GUARDED, f"{path}:{sub.lineno}: try around {name}"
