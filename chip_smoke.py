@@ -32,6 +32,16 @@ Phases, one line or more each; any failure raises and exits non-zero:
              call (its one launch) and per color step, ssd_intra against the
              tensor cores' TF32 rate with the float32-FMA bound beside it,
              kernel_matvec also at B = 1 and with every anchor non-zero;
+  2b. audit  ``repro_torch.analysis`` on the card: the launch ledger held
+             to this script's LEDGER_UNITS; a control (knn_fuse without a
+             plan: exactly one host-sync finding, in make_serving_plan);
+             then every function of the sync-free registry under
+             torch.cuda.set_sync_debug_mode("error") (host-sync), the
+             liveness rules through the cuda engines (alive-dead,
+             alive-scatter) and the launch ledger's self-check with its grid
+             check (a fault-rate, tau and beta grid: each call the ledger's
+             launches, no library build); one "audit:" line per auditor, and
+             no new finding nor stale baseline entry among what ran;
   3. main    the port's launcher at the benched geometry (n=1000 sensors in
              d=2, radius 0.3*sqrt(100/n), rbf gamma=1, lambda=0.1, B=16
              fields, 30 colored sweeps with the CUDA color step, kNN k=3 and
@@ -979,6 +989,65 @@ STREAM_Z_TOL, STREAM_COEF_TOL = 2e-4, 2e-2  # the long-chain sweep bound
 STREAM_KNN_TOL = 2e-4
 
 
+# One unit of each registry entry whose launches the phases below count, as
+# this script holds them.  The phases read their expected counts from the
+# launch ledger; the audit phase first holds the ledger to this table, so a
+# change to the ledger's counts fails the run instead of moving the yardstick.
+LEDGER_UNITS = {
+    "sweep.colored.cuda": {"color_step": 1},
+    "serving.knn.cuda": {"knn_fuse": 1},
+    "kernels.matvec": {"kernel_matvec": 1},
+    "faults.cuda": {"color_step": 1},  # per call (a round)
+    "faults.crash.cuda": {"color_step": 1},  # per sweep
+    "sweep.sharded.fields.cuda": {"color_step": 1},
+    "sweep.sharded.sensors": {},
+    "lm.prefill.ssd": {"ssd_intra": 1},  # per SSM layer of a prefill
+}
+# the host-sync control: knn_fuse without a plan builds one on the host, so
+# the auditor must report exactly this key
+SYNC_CONTROL = "host-sync:control.knn_fuse.plan_none:core.serving:make_serving_plan"
+
+
+def run_audit(torch) -> dict:
+    """The card's auditors of ``repro_torch.analysis``: host-sync over the
+    sync-free registry, the liveness rules through the cuda engines, and the
+    launch ledger with its fault-rate / tau / beta grid check.  First the
+    ledger is held to ``LEDGER_UNITS`` and the host-sync auditor to a
+    control with one known sync (outside the baseline comparison).  One
+    ``audit:`` line per auditor; any new finding, or a stale baseline entry
+    among what ran, fails the run.  Returns the seconds and keys."""
+    from repro_torch import analysis
+    from repro_torch.analysis import entries, launch_ledger, sync_audit
+    from repro_torch.core import serving
+
+    t0 = time.perf_counter()
+    for name, want in LEDGER_UNITS.items():
+        got = {k: v for k, v in launch_ledger.expected({name: 1}).items() if v}
+        check(got == want, f"audit: the ledger says {name} launches {got}, this script {want}")
+    c = entries.card_inputs(sync_audit.canonical_card())
+    control = sync_audit.audit_entry(
+        "control.knn_fuse.plan_none", "core.serving:knn_fuse",
+        lambda: serving.knn_fuse(c.p, c.st, c.xq, 2, plan=None, engine="cuda"))
+    keys = [f.key for f in control]
+    print(f"audit: control: knn_fuse without a plan: {keys}")
+    check(keys == [SYNC_CONTROL], f"audit: the host-sync control found {keys}, "
+          f"expected [{SYNC_CONTROL}]")
+    results = analysis.run(("sync", "alive", "ledger"), "cuda")
+    readings = {"control": keys}
+    for r in results:
+        print(analysis.summary_line(r))
+        for f in r["findings"]:
+            print(f"audit: {r['auditor']}: {'NEW' if f in r['new'] else 'baselined'} "
+                  f"{f.key}: {f.detail}")
+        for key in r["stale"]:
+            print(f"audit: {r['auditor']}: STALE {key} (no longer fires; delete it)")
+        readings[r["auditor"]] = {"s": r["seconds"], "findings": [f.key for f in r["findings"]]}
+    bad = [f.key for r in results for f in r["new"]] + [k for r in results for k in r["stale"]]
+    check(not bad, f"audit: new or stale findings {bad}")
+    readings["phase_s"] = time.perf_counter() - t0
+    return readings
+
+
 def stream_args():
     from repro_torch.launch import serve
 
@@ -990,6 +1059,7 @@ def run_stream_launcher(torch, mods) -> tuple[dict, dict]:
     """The launcher with --stream at the field path's geometry, launches counted;
     then its streamed state held to the same pipeline on the plain engines.
     Returns (launches, readings)."""
+    from repro_torch.analysis import launch_ledger
     from repro_torch.core import colored_sweep, streaming
     from repro_torch.kernels import kernel_matvec as km
     from repro_torch.launch import serve
@@ -1003,8 +1073,9 @@ def run_stream_launcher(torch, mods) -> tuple[dict, dict]:
     launches = {name: mod.launches for name, mod in mods.items()}
     print("main-stream: kernel launches " + json.dumps(launches)
           + f" ({res['train_calls']} train calls + 1 refresh)")
-    expected = {"color_step": res["train_calls"] + 1, "knn_fuse": serve.TIMED_CALLS,
-                "kernel_matvec": serve.TIMED_CALLS, "ssd_intra": 0, "rbf_gram": 0}
+    expected = launch_ledger.expected({"sweep.colored.cuda": res["train_calls"] + 1,
+                                       "serving.knn.cuda": serve.TIMED_CALLS,
+                                       "kernels.matvec": serve.TIMED_CALLS})
     check(launches == expected, f"main-stream: kernel launches {launches}, expected {expected}")
     info, prob, state, xq = res["stream"], res["problem"], res["state"], res["xq"]
     b, q = args.fields, args.queries
@@ -1233,6 +1304,7 @@ def churn_args():
 def run_churn_launcher(torch, mods) -> tuple[dict, dict]:
     """The launcher with --stream and --churn, launches counted from 0; then
     the same trace replayed on the plain engines.  Returns (launches, readings)."""
+    from repro_torch.analysis import launch_ledger
     from repro_torch.core import streaming
     from repro_torch.launch import serve
 
@@ -1247,9 +1319,10 @@ def run_churn_launcher(torch, mods) -> tuple[dict, dict]:
     print("main-churn: kernel launches " + json.dumps(launches)
           + f" ({res['train_calls']} train calls + 1 stream refresh + {info['refresh_calls']} "
           f"churn refreshes; {info['knn_calls']} churn kNN requests + {serve.TIMED_CALLS})")
-    expected = {"color_step": res["train_calls"] + 1 + info["refresh_calls"],
-                "knn_fuse": info["knn_calls"] + serve.TIMED_CALLS,
-                "kernel_matvec": serve.TIMED_CALLS, "ssd_intra": 0, "rbf_gram": 0}
+    expected = launch_ledger.expected({
+        "sweep.colored.cuda": res["train_calls"] + 1 + info["refresh_calls"],
+        "serving.knn.cuda": info["knn_calls"] + serve.TIMED_CALLS,
+        "kernels.matvec": serve.TIMED_CALLS})
     check(launches == expected, f"main-churn: kernel launches {launches}, expected {expected}")
     check(info["refresh_calls"] == args.churn + args.churn // 2
           and info["knn_calls"] == args.churn, "main-churn: the launcher's round count")
@@ -1566,6 +1639,7 @@ def run_faults_launcher(torch, mods, name: str) -> tuple[dict, dict]:
     generator of the same seed (the same masks): receipt integers equal,
     states at the long-chain bound, answers as the main phase holds them.
     Returns (launches, readings)."""
+    from repro_torch.analysis import launch_ledger
     from repro_torch.launch import serve
 
     argv, args = faults_args(FAULT_SPECS[name])
@@ -1581,8 +1655,11 @@ def run_faults_launcher(torch, mods, name: str) -> tuple[dict, dict]:
     print(f"main-faults {name}: kernel launches " + json.dumps(launches)
           + f" ({rec.rounds} rounds, {rec.sweeps} sweeps: one color_sweep launch per "
           + ("sweep)" if crash else "round)"))
-    expected = {"color_step": per, "knn_fuse": serve.TIMED_CALLS,
-                "kernel_matvec": serve.TIMED_CALLS, "ssd_intra": 0, "rbf_gram": 0}
+    # faulty_sweep launches once per call (a round) crash-free, once per
+    # sweep with a crash model
+    expected = launch_ledger.expected({("faults.crash.cuda" if crash else "faults.cuda"): per,
+                                       "serving.knn.cuda": serve.TIMED_CALLS,
+                                       "kernels.matvec": serve.TIMED_CALLS})
     check(launches == expected,
           f"main-faults {name}: kernel launches {launches}, expected {expected}")
     check(rec.sweeps == rec.rounds * FAULT_ROUND and res["train_calls"] == rec.rounds,
@@ -2121,6 +2198,7 @@ def run_daemon(torch, mods) -> tuple[dict, dict, float]:
     readings, energy_tau)."""
     import dataclasses
 
+    from repro_torch.analysis import launch_ledger
     from repro_torch.core import colored_sweep, fusion, init_state, make_serving_plan, pruning
     from repro_torch.core import serving
     from repro_torch.kernels import _build
@@ -2184,8 +2262,8 @@ def run_daemon(torch, mods) -> tuple[dict, dict, float]:
         print("main-daemon: kernel launches " + json.dumps(launches)
               + f" ({len(dispatches)} dispatches, {rounds} watchdog rounds); CUDA library "
               f"builds during the run {builds}")
-        expected = dict({name: 0 for name in mods}, color_step=rounds,
-                        knn_fuse=len(dispatches))
+        expected = launch_ledger.expected({"sweep.colored.cuda": rounds,
+                                           "serving.knn.cuda": len(dispatches)})
         check(launches == expected, f"main-daemon: launches {launches}, expected {expected}")
         check(builds == 0, "main-daemon: a CUDA library was built during the run")
         check(len(isolation) == len(rows) and all(isolation),
@@ -2410,6 +2488,7 @@ def run_daemon_cli(torch) -> dict:
 def run_prune_launcher(torch, mods, tau: float) -> tuple[dict, dict]:
     """The field launcher at the benched geometry with --energy_tau, launches
     counted from 0: knn_fuse serves the compacted plan."""
+    from repro_torch.analysis import launch_ledger
     from repro_torch.launch import serve
 
     argv = main_args()[0] + ["--energy_tau", repr(tau)]
@@ -2424,8 +2503,9 @@ def run_prune_launcher(torch, mods, tau: float) -> tuple[dict, dict]:
     print("main-prune: kernel launches " + json.dumps(launches)
           + f"; K_max {rep.k_max_before} -> {rep.k_max_after}, pruned {rep.n_pruned} of "
           f"{rep.n_live} live sensors at tau {tau!r}")
-    expected = dict({name: 0 for name in mods}, color_step=res["train_calls"],
-                    knn_fuse=serve.TIMED_CALLS, kernel_matvec=serve.TIMED_CALLS)
+    expected = launch_ledger.expected({"sweep.colored.cuda": res["train_calls"],
+                                       "serving.knn.cuda": serve.TIMED_CALLS,
+                                       "kernels.matvec": serve.TIMED_CALLS})
     check(launches == expected, f"main-prune: launches {launches}, expected {expected}")
     check(plan.k_max == rep.k_max_after < rep.k_max_before and 0 < rep.n_pruned < rep.n_live,
           "main-prune: the plan was not compacted")
@@ -2460,6 +2540,7 @@ def run_sharded(torch, mods, ctx) -> tuple[dict, dict]:
     engine (one color_sweep launch per call, bitwise colored_sweep), without
     and with a 10% drop mask; the sensor regime on field 0 against the plan
     engine (f32 2e-4 / 2e-2, f64 1e-10); then its costs."""
+    from repro_torch.analysis import launch_ledger
     from repro_torch.core import colored_sweep, field_view, init_state, sharded_sweep
     from repro_torch.distributed import all_gather_into
     from repro_torch.launch import serve
@@ -2481,7 +2562,8 @@ def run_sharded(torch, mods, ctx) -> tuple[dict, dict]:
     launches = {name: mod.launches for name, mod in mods.items()}
     print("main-sharded: kernel launches " + json.dumps(launches)
           + f" (2 field-sharded calls of {sweeps} sweeps, 1 sensor-regime call)")
-    expected = dict({name: 0 for name in mods}, color_step=2)
+    expected = launch_ledger.expected({"sweep.sharded.fields.cuda": 2,
+                                       "sweep.sharded.sensors": 1})
     check(launches == expected, f"main-sharded: launches {launches}, expected {expected}")
     out = {}
     for tag, got, mask in (("field", sh, None), ("field+drops", sh_d, deliv)):
@@ -2803,6 +2885,7 @@ def run() -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     import torch.distributed as dist
 
+    from repro_torch.analysis import launch_ledger
     from repro_torch.core import (colored_sweep, fusion, init_state, make_serving_plan,
                                   representer_energy)
     from repro_torch.kernels import _build, color_step, gram, kernel_matvec, knn_fuse, ssd_intra
@@ -2864,6 +2947,10 @@ def run() -> int:
     for name, t in timing.items():
         print(f"kernels: {name} timing: " + json.dumps(t))
 
+    # 2b. the invariant audit on the card -----------------------------------
+    audit_readings = run_audit(torch)
+    print("audit: " + json.dumps(audit_readings))
+
     # 3. the main path through the port's launcher ---------------------------
     mods = {"color_step": color_step, "knn_fuse": knn_fuse, "kernel_matvec": kernel_matvec,
             "ssd_intra": ssd_intra, "rbf_gram": gram}
@@ -2878,8 +2965,10 @@ def run() -> int:
     print("main: kernel launches " + json.dumps(launches))
     # one launch per call: colored_sweep and each serving request run twice
     # (the launcher's warm-up and its timed call)
-    expected = {"color_step": res["train_calls"], "knn_fuse": serve.TIMED_CALLS,
-                "kernel_matvec": serve.TIMED_CALLS}
+    want = launch_ledger.expected({"sweep.colored.cuda": res["train_calls"],
+                                   "serving.knn.cuda": serve.TIMED_CALLS,
+                                   "kernels.matvec": serve.TIMED_CALLS})
+    expected = {name: want[name] for name in field}
     check(launches == expected,
           f"main: kernel launches {launches}, expected one per call: {expected}")
     prob, state, xq = res["problem"], res["state"], res["xq"]
@@ -2959,11 +3048,11 @@ def run() -> int:
     print("main-lm: kernel launches " + json.dumps(lm_launches)
           + f" ({lm['prefill_calls']} prefill calls, the warm-up included)")
     cfg = lm["cfg"]
-    check(lm_launches["ssd_intra"] == cfg.n_layers * lm["prefill_calls"],
+    want = launch_ledger.expected({"lm.prefill.ssd": cfg.n_layers * lm["prefill_calls"]})
+    check(lm_launches["ssd_intra"] == want["ssd_intra"],
           f"main-lm: ssd_intra launched {lm_launches['ssd_intra']} times, expected "
           f"{cfg.n_layers} per prefill x {lm['prefill_calls']}")
-    check(all(lm_launches[name] == 0 for name in field + ("rbf_gram",)),
-          f"main-lm: a kernel off the LM path was launched: {lm_launches}")
+    check(lm_launches == want, f"main-lm: a kernel off the LM path was launched: {lm_launches}")
     b_lm, gen = (int(LM_ARGV[LM_ARGV.index(flag) + 1]) for flag in ("--batch", "--gen"))
     check(lm["logits"].shape == (b_lm, 1, cfg.vocab_size)
           and bool(torch.isfinite(lm["logits"]).all()), "main-lm: prefill logits")

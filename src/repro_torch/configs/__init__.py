@@ -12,7 +12,7 @@ encoder-decoder or VLM layers, which come with ROADMAP Queue 1 item 9, and
 from __future__ import annotations
 
 from ..models.config import ModelConfig, reduced
-from . import mamba2_370m
+from . import mamba2_370m, sensor_field
 
 ARCH_NAMES = [
     "smollm-135m",
@@ -46,4 +46,9 @@ def get_config(name: str, *, variant: str | None = None) -> ModelConfig:
     raise ValueError(f"unknown variant {variant!r}")
 
 
-__all__ = ["ARCH_NAMES", "get_config"]
+def sensor_field_config() -> sensor_field.SensorFieldConfig:
+    """The paper's field-estimation workload (``configs.sensor_field``)."""
+    return sensor_field.config()
+
+
+__all__ = ["ARCH_NAMES", "get_config", "sensor_field_config"]

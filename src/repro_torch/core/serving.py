@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from . import plans
@@ -133,15 +132,15 @@ def plan_add_sensor(plan: ServingPlan, x, slot) -> tuple[ServingPlan, torch.Tens
 
 
 def query_cells(plan: ServingPlan, xq: torch.Tensor) -> torch.Tensor:
-    """Flattened cell id per query, (Q,) int32 (out-of-domain clipped)."""
+    """Flattened (row-major) cell id per query, (Q,) int32 (out-of-domain
+    clipped).  The grid's extents are host ints, so nothing is copied to
+    the device."""
     rel = (xq - plan.origin[None, :]) * plan.inv_cell[None, :]
-    idx = torch.floor(rel).to(torch.int32)
-    dims = torch.as_tensor(plan.grid_shape, dtype=torch.int32, device=xq.device)
-    idx = torch.minimum(torch.clamp(idx, min=0), dims[None, :] - 1)
-    strides = np.concatenate(
-        [np.cumprod(plan.grid_shape[::-1])[-2::-1], [1]]
-    ).astype(np.int32)
-    return torch.sum(idx * torch.as_tensor(strides, device=xq.device), dim=-1).to(torch.int32)
+    idx = torch.clamp(torch.floor(rel).to(torch.int32), min=0)
+    cid = torch.clamp(idx[:, 0], max=plan.grid_shape[0] - 1)
+    for j, g in enumerate(plan.grid_shape[1:], start=1):
+        cid = cid * g + torch.clamp(idx[:, j], max=g - 1)
+    return cid.to(torch.int32)
 
 
 _ALIASES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
@@ -188,7 +187,7 @@ def knn_select_valid(
     pos_pad = torch.cat([positions, positions.new_zeros((1, positions.shape[1]))])
     cpos = pos_pad[cand]
     d2 = torch.sum((xq[:, None, :] - cpos) ** 2, dim=-1)
-    d2 = torch.where(cmask, d2, torch.tensor(float("inf"), dtype=d2.dtype, device=d2.device))
+    d2 = torch.where(cmask, d2, float("inf"))
     vals, top = torch.sort(d2, dim=1, stable=True)  # ties: lower column first
     return cand.gather(1, top[:, :k]), torch.isfinite(vals[:, :k])
 

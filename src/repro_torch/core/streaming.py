@@ -28,10 +28,11 @@ the sensor's factor is rebuilt from its (D, D) Gram.
 Forgetting (EW-RLS): each absorb at (field, sensor) multiplies the
 sensor's occupied stream lanes' anchor weights by sqrt(beta), rescales the
 Gram rows/columns and message slots to match, and patches the factor by
-scale-then-update (a sqrt(beta) row scale, then one rank-1 update per
-ticked lane restoring the undecayed lambda, ``_chol_diag_update``).  With
-``beta = 1`` every tick multiplies by exactly 1.0 and the restore is not
-applied, so the static path is bitwise the same as no forgetting.
+scale-then-update (a sqrt(beta) row scale, then the restore of the
+undecayed lambda on the ticked lanes, ``_chol_diag_update``).  With
+``beta = 1`` every tick multiplies by exactly 1.0 and the restore is
+computed but not selected, so the static path is bitwise the same as no
+forgetting.
 
 How the port computes it:
 
@@ -46,11 +47,10 @@ How the port computes it:
   place and returns objects holding the same tensors (the caller rebinds);
   ``donate=False`` copies the touched tensors first and leaves the inputs
   bitwise untouched.
-- No host sync per arrival: every write is gated with ``torch.where`` on
-  the row's ``ok`` flag and the flags come back as tensors.  The one host
-  read is per call: whether any field has ``beta < 1``.  If none has, the
-  D x D steps of the lambda restore are skipped (the reference computes and
-  discards them then, so the result is bitwise the same).
+- No host sync: every write is gated with ``torch.where`` on the row's
+  ``ok`` flag and the flags come back as tensors.  The forgetting tick
+  always runs, as the reference's does; a field with ``beta = 1`` takes
+  the unrestored factor through ``torch.where``, so it keeps its bits.
 - Writes with repeated indices: every gather precedes the writes, and a
   repeated target only ever receives its current value (structural lanes
   shared between rows, the z sentinel), so no write order can change a
@@ -174,11 +174,6 @@ def _writable(problem, state, donate: bool, tables=_TABLES):
     return problem, SNTrainState(z=state.z.clone(), coef=state.coef.clone())
 
 
-def _forgets(problem: SNTrainProblem) -> bool:
-    """Whether any field decays (the call's one host read)."""
-    return bool((problem.beta < 1.0).any())
-
-
 def _rows(t: torch.Tensor, problem: SNTrainProblem) -> torch.Tensor:
     """A per-sensor (n, ...) topology table padded with zeros to the n + 1 rows."""
     pad = t.new_zeros((problem.n + 1 - t.shape[0],) + tuple(t.shape[1:]))
@@ -209,33 +204,17 @@ def capacity_left(problem: SNTrainProblem) -> torch.Tensor:
 
 
 def _chol_diag_update(chol: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    """chol(L L^T + diag(alpha^2)) by one classic rank-1 update per lane.
+    """chol(L L^T + diag(alpha^2)), refactored from the product.
 
     ``chol`` (..., D, D), ``alpha`` (..., D) with zeros on untouched lanes.
     The "update" half of the forgetting tick's scale-then-update: it
-    restores the undecayed regularizer on the ticked lanes.  A zero entry is
-    neutral only in exact arithmetic (sqrt(l*l) costs an ulp), so callers
-    apply it only to fields with beta < 1.  D lanes x D rows of batched
-    steps over every leading dim.
+    restores the undecayed regularizer on the ticked lanes.  The reference
+    applies one rank-1 update per lane (D x D sequential steps); one
+    batched product and one batched ``factor`` give the same factor to
+    rounding in a few launches.  A zero ``alpha`` is neutral only to
+    rounding, so callers select the result only for fields with beta < 1.
     """
-    d = chol.shape[-1]
-    ar = torch.arange(d, device=chol.device)
-    L = chol.clone()
-    for j in range(d):
-        x = torch.where(ar == j, alpha[..., j : j + 1], 0.0)
-        for i in range(d):
-            lii = L[..., i, i]
-            xi = x[..., i]
-            r = torch.sqrt(lii * lii + xi * xi)
-            c = (r / lii)[..., None]
-            s = (xi / lii)[..., None]
-            below = ar > i
-            col = L[..., :, i]
-            new_col = torch.where(below, (col + s * x) / c, col)
-            new_col[..., i] = r
-            x = torch.where(below, c * x - s * new_col, x)
-            L[..., :, i] = new_col
-    return L
+    return factor(chol @ chol.transpose(-1, -2) + torch.diag_embed(alpha * alpha))
 
 
 def _evict_rows(problem, state, f, s, gate) -> torch.Tensor:
@@ -302,7 +281,7 @@ def _evict_rows(problem, state, f, s, gate) -> torch.Tensor:
     return ok
 
 
-def _absorb_rows(problem, state, f, s, x, y, amask, forget: bool) -> torch.Tensor:
+def _absorb_rows(problem, state, f, s, x, y, amask) -> torch.Tensor:
     """Absorb arrival (x[i], y[i]) at row (f[i], s[i]) where ``amask``, in place.
 
     The forgetting tick of the row's occupied stream lanes, then the
@@ -336,10 +315,8 @@ def _absorb_rows(problem, state, f, s, x, y, amask, forget: bool) -> torch.Tenso
     aw_s = aw * s_vec.to(aw.dtype)
     gram_s = gram * (s_vec[:, :, None] * s_vec[:, None, :])
     chol_s = chol * s_vec[:, :, None].to(chol.dtype)
-    if forget:
-        alpha = torch.where(is_stream, torch.sqrt((1.0 - beta) * lam.to(gdt))[:, None], 0.0)
-        chol_s = torch.where((beta < 1.0)[:, None, None], _chol_diag_update(chol_s, alpha),
-                             chol_s)
+    alpha = torch.where(is_stream, torch.sqrt((1.0 - beta) * lam.to(gdt))[:, None], 0.0)
+    chol_s = torch.where((beta < 1.0)[:, None, None], _chol_diag_update(chol_s, alpha), chol_s)
 
     # the weighted kernel row over the effective (occupied & alive) lanes;
     # the fresh arrival enters at weight 1
@@ -385,14 +362,14 @@ def _full(problem, f, s) -> torch.Tensor:
     return torch.all(problem.nbr_mask[f, s] | (problem.nbr_idx[s] == problem.sentinel), dim=-1)
 
 
-def _absorb_one(problem, state, f, s, x, y, evict: bool, forget: bool):
+def _absorb_one(problem, state, f, s, x, y, evict: bool):
     """One arrival at row (f, s) (each (1,)), in place; returns (absorbed, evicted)."""
     yes = torch.ones((1,), dtype=torch.bool, device=problem.device)
     if evict:
         ev = _evict_rows(problem, state, f, s, _full(problem, f, s))
     else:
         ev = ~yes
-    ok = _absorb_rows(problem, state, f, s, x, y, yes, forget)
+    ok = _absorb_rows(problem, state, f, s, x, y, yes)
     return ok, ev
 
 
@@ -427,7 +404,7 @@ def absorb(
     f, s = _ints(field, problem), _ints(sensor, problem)
     x = torch.as_tensor(x, dtype=problem.nbr_pos.dtype, device=problem.device).reshape(1, -1)
     y = torch.as_tensor(y, dtype=state.z.dtype, device=problem.device).reshape(1)
-    ok, _ = _absorb_one(problem, state, f, s, x, y, on_full == "evict", _forgets(problem))
+    ok, _ = _absorb_one(problem, state, f, s, x, y, on_full == "evict")
     return problem, state, ok[0]
 
 
@@ -446,8 +423,7 @@ def absorb_many(
 
     ``fields``/``sensors`` are (A,) ints, ``xs`` (A, d), ``ys`` (A,).  Each
     arrival runs exactly ``absorb``'s update under the same ``on_full``
-    policy, so the result equals A sequential ``absorb`` calls bitwise, with
-    one host read for the whole window instead of one per arrival.  Returns
+    policy, so the result equals A sequential ``absorb`` calls bitwise.  Returns
     an ``AbsorbReceipt`` of (A,) ``absorbed``/``evicted`` flags.  ``donate``
     has ``absorb``'s contract.
     """
@@ -464,11 +440,11 @@ def absorb_many(
             f"{tuple(sensors.shape)} / {tuple(ys.shape)}"
         )
     problem, state = _writable(problem, state, donate)
-    forget, evict = _forgets(problem), on_full == "evict"
+    evict = on_full == "evict"
     oks, evs = [], []
     for i in range(a):
         ok, ev = _absorb_one(problem, state, fields[i : i + 1], sensors[i : i + 1],
-                             xs[i : i + 1], ys[i : i + 1], evict, forget)
+                             xs[i : i + 1], ys[i : i + 1], evict)
         oks.append(ok)
         evs.append(ev)
     none = torch.zeros((0,), dtype=torch.bool, device=problem.device)
@@ -555,7 +531,7 @@ def absorb_wave(
         ev = _evict_rows(problem, state, f, s, _full(problem, f, s) & am)
     else:
         ev = torch.zeros_like(am)
-    ok = _absorb_rows(problem, state, f, s, x, y, am, _forgets(problem))
+    ok = _absorb_rows(problem, state, f, s, x, y, am)
     receipt = AbsorbReceipt(absorbed=ok.reshape(b, r)[:, :n], evicted=ev.reshape(b, r)[:, :n])
     return problem, state, receipt
 
@@ -857,7 +833,7 @@ def add_sensor(
             "problem has no spare rows — build with make_problem(..., n_max=n + spares) "
             "(or build_topology n_max=)"
         )
-    if float(topo.radius) <= 0.0:
+    if topo.radius <= 0.0:
         raise ValueError(
             "add_sensor needs a geometric topology (radius > 0) to find the joining "
             "sensor's neighborhood"

@@ -139,7 +139,7 @@ def knn_fuse_fused(
 
 
 def _launch(xq, qcell, cells, cell_mask, alive, spos, nbr_pos, nbr_mask, coef,
-            gamma, k, with_selection):
+            gamma: float, k: int, with_selection: bool):
     req = _build.require
     dev = xq.device
     req(dev.type == "cuda", f"knn_fuse runs on cpu or cuda, got {dev}")

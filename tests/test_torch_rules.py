@@ -17,10 +17,17 @@ from repro_torch.data import lm
 from repro_torch.launch import (daemon, multi_gpu, profile_field, profile_lm, profile_train,
                                 serve, train)
 from repro_torch.optim import optimizers, schedules
+from repro_torch import analysis
+from repro_torch.analysis import (alive_audit, ast_lint, dtype_audit, entries, launch_ledger,
+                                  report, sync_audit)
 
 # the modules of the multi-device and training slice
 TRAIN_SLICE = (sop, consensus, distributed, tree, optim, optimizers, schedules, data, lm,
                train, profile_train, multi_gpu, models.model)
+
+# the modules of the audit slice
+ANALYSIS = (analysis, report, ast_lint, launch_ledger, dtype_audit, alive_audit, sync_audit,
+            entries)
 
 torch.set_num_threads(1)
 
@@ -37,7 +44,7 @@ def _port_files():
 def test_port_never_imports_jax_or_the_reference():
     files = _port_files()
     assert len(files) > 10
-    for mod in (pruning, daemon) + TRAIN_SLICE:  # the later slices' modules are checked too
+    for mod in (pruning, daemon) + TRAIN_SLICE + ANALYSIS:  # later slices' modules too
         assert os.path.abspath(mod.__file__) in files
     for path in files:
         with open(path) as fh:
@@ -88,6 +95,11 @@ ENTRY_POINTS = {
     "distributed.init_group": lambda: distributed.init_group(0, 1),
     "distributed.rank_device": lambda: distributed.rank_device(0),
     "distributed.spawn": lambda: distributed.spawn(print, 2),
+    "analysis.canonical": lambda: entries.canonical(),
+    "analysis.dtype_audit": lambda: dtype_audit.run(),
+    "analysis.alive_audit": lambda: alive_audit.run(),
+    "analysis.sync_audit": lambda: sync_audit.run(),
+    "analysis.run_auditor": lambda: analysis.run_auditor("alive"),
 }
 
 
@@ -219,7 +231,7 @@ def test_new_entry_points_default_to_the_card():
     """Every function of the training slice that takes ``device=`` defaults
     to "cuda"; the launcher's flag too."""
     seen = []
-    for mod in TRAIN_SLICE:
+    for mod in TRAIN_SLICE + ANALYSIS:
         for name, fn in vars(mod).items():
             public = inspect.isfunction(fn) and not name.startswith("_")
             if public and fn.__module__ == mod.__name__:
@@ -227,7 +239,7 @@ def test_new_entry_points_default_to_the_card():
                 if param is not None:
                     assert param.default == "cuda", f"{mod.__name__}.{name}"
                     seen.append(name)
-    assert {"init_group", "rank_device", "spawn"} <= set(seen)
+    assert {"init_group", "rank_device", "spawn", "canonical", "run"} <= set(seen)
     for launcher in (train, multi_gpu):
         assert launcher.parser().parse_args([]).device == "cuda"
         assert launcher.parser().parse_args([]).world is None
