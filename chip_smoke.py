@@ -159,11 +159,28 @@ Phases, one line or more each; any failure raises and exits non-zero:
              same weights, compared on the prefill's logits, every layer's
              final SSM state and 4 teacher-forced decode steps, with an
              f64 run of the plain route as the witness;
+  4b. main-dense the dense family, which launches no kernel of the port
+             (every counter set to 0 before each run and read after, and
+             0): the LM launcher with its default --arch, smollm-135m, at
+             full width (30 layers, d_model 576, 9 heads over 3 kv heads,
+             bf16, random weights from seed 0), 4 x 512 prompt, 32 tokens,
+             with prefill s, decode tok/s and peak memory; its weights cast
+             to float32: prefill 509 of the 512 tokens and 3 teacher-forced
+             decode steps against the forward (2e-4 / 3e-4, or the f64
+             witness rule of main-lm), the bf16 model's own difference
+             printed; the ring cache at a window of 64 under the 512-token
+             prompt and 4 decode steps against the windowed forward (3e-4 /
+             4e-4); 10 training steps after a warm-up at batch 8 x 128
+             with the launcher's AdamW (finite, falling loss; five leaves'
+             AdamW update against the float64 formula), then ``python -m
+             repro_torch.launch.train --arch smollm-135m --variant full
+             --steps 3``, which must print ``done``; internlm2-1.8b served at
+             full width likewise; nemotron-4-15b and qwen1.5-32b at the
+             smoke variant in float32, decode against forward;
   5. report  the kernels JSON line (``launches``: the sum over the field,
-             stream, churn, faults, daemon, prune, sharded, train and LM
-             paths' runs, each
-             path's count beside it), the card's name and power limit, and the final
-             {"ok": true, ...} line.
+             stream, churn, faults, daemon, prune, sharded, train, LM and
+             dense paths' runs, each path's count beside it), the card's
+             name and power limit, and the final {"ok": true, ...} line.
 
 Tolerances are the reference's own.  Per color step, on identical inputs:
 color_step z 1e-5 and coef 1e-3 in f32 (tests/test_scatter_plan.py),
@@ -2652,17 +2669,19 @@ ADAMW_CHECK_LEAVES = ("embed", "layers.0.ssm.in_proj", "layers.47.ssm.out_proj",
                       "layers.23.ssm.A_log", "final_norm.scale")
 
 
-def check_adamw(torch, names, p0, grads, state0, state1, p1, lr: float) -> dict:
-    """The step's AdamW update recomputed in float64 from the gradients it
-    was given and the moments before it: moments to 1e-5 relative, the new
-    bf16 parameters to one bf16 ulp (plus 1e-6 of |p| + |u|)."""
+def check_adamw(torch, names, p0, grads, state0, state1, p1, lr: float,
+                leaves=ADAMW_CHECK_LEAVES, label: str = "main-train") -> dict:
+    """The step's AdamW update of ``leaves`` recomputed in float64 from the
+    gradients it was given and the moments before it: moments to 1e-5
+    relative, the new bf16 parameters to one bf16 ulp (plus 1e-6 of |p| +
+    |u|)."""
     b1, b2, eps, wd = 0.9, 0.95, 1e-8, 0.1  # repro.optim.adamw's defaults
     g64 = [g.double() for g in grads]
     norm = sum(float((g * g).sum()) for g in g64) ** 0.5
     scale = min(1.0, 1.0 / (norm + 1e-9))
     step = int(state1["step"])
     out = {}
-    for name in ADAMW_CHECK_LEAVES:
+    for name in leaves:
         i = names.index(name)
         g = g64[i] * scale
         mu = b1 * state0["mu"][i].double() + (1 - b1) * g
@@ -2680,9 +2699,72 @@ def check_adamw(torch, names, p0, grads, state0, state1, p1, lr: float) -> dict:
                     max_err(state1["nu"][i], nu) / max(float(nu.abs().max()), 1e-30))
         out[name] = dict(param_over_bound=err_p, moments_rel=err_m)
         check(err_p <= 1.0 and err_m <= 1e-5,
-              f"main-train: AdamW update of {name} differs from the float64 formula: "
+              f"{label}: AdamW update of {name} differs from the float64 formula: "
               f"{err_p} of its bound, moments {err_m}")
     return out
+
+
+def train_and_time(torch, cfg, dp_mode: str, group, world: int, steps: int, leaves,
+                   label: str) -> tuple[dict, dict]:
+    """``cfg`` (random weights from seed 0) trained with the launcher's build
+    (AdamW on its cosine schedule for ``steps`` steps) at batch 8 x 128: a
+    warm-up step, then ``steps - 1`` timed steps, with one host read of the
+    loss per step; the AdamW update of ``leaves`` after the first step
+    against the float64 formula; the loss finite and falling.  Returns the
+    readings and the last step's metrics."""
+    from repro_torch import optim, tree
+    from repro_torch.data import synthetic_lm_stream
+    from repro_torch.launch import train
+    from repro_torch.models import init_params, make_train_step
+    from repro_torch.optim import cosine_warmup
+
+    stream = synthetic_lm_stream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in stream.batch_at(i).items()}
+               for i in range(steps)]
+    # the launcher's schedule (train.build) at the first step
+    lr_1 = float(cosine_warmup(TRAIN_LR, min(100, steps // 10 + 1), steps)(1))
+    opt, _ = train.build(cfg, dp_mode=dp_mode, lr=TRAIN_LR, steps=steps, group=group,
+                         world=world)
+    seen = {}
+
+    def update(grads, state, params):
+        seen["grads"] = [gr.detach().clone() for gr in grads]
+        return opt.update(grads, state, params)
+
+    rec = optim.Optimizer(init=opt.init, update=update)
+    sched = [[0]] if dp_mode == "sop_gossip" else None  # train.build's, at a world of one
+    step = make_train_step(cfg, rec, group=group, dp_mode=dp_mode, gossip_schedule=sched)
+    params = init_params(cfg, LM_SEED, device="cuda")
+    names = [n for n, _ in params.named_parameters()]
+    state = opt.init(params)
+    p0 = _clones(tree.leaves(params))
+    s0 = {"mu": _clones(state["mu"]), "nu": _clones(state["nu"])}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, state, m = step(params, state, batches[0], 0)  # the warm-up step
+    losses = [float(m["loss"])]
+    warm_s = time.perf_counter() - t0
+    adamw = check_adamw(torch, names, p0, seen["grads"], s0, state, tree.leaves(params), lr_1,
+                        leaves, label)
+    del p0, s0
+    times = []
+    for i in range(1, steps):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batches[i], i)
+        losses.append(float(m["loss"]))  # one host read per step, as the launcher logs
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"{label}: the loss did not fall: {losses}")
+    s_step = float(np.mean(times))
+    readings = dict(leaves=len(names), s_per_step=s_step,
+                    s_per_step_p50=float(np.median(times)), warmup_s=warm_s,
+                    tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / s_step, peak_bytes=peak,
+                    losses=losses, adamw=adamw)
+    del params, state, seen, batches
+    torch.cuda.empty_cache()
+    return readings, m
 
 
 def run_train(torch, mods, ctx) -> tuple[dict, dict]:
@@ -2692,80 +2774,32 @@ def run_train(torch, mods, ctx) -> tuple[dict, dict]:
     timed steps; launch counters set to 0 before and read after (no kernel
     of the port is on this path: ssd_fused stays off, as in the reference's
     launcher); then the launcher itself in a subprocess."""
-    from repro_torch import optim, tree
     from repro_torch.configs import get_config
-    from repro_torch.data import synthetic_lm_stream
-    from repro_torch.launch import train
-    from repro_torch.models import init_params, make_train_step
-    from repro_torch.optim import cosine_warmup
 
     cfg = get_config("mamba2-370m")
     check(not cfg.ssd_fused and cfg.dtype == "bfloat16" and cfg.n_layers == 48,
           "main-train: not the full-width mamba2-370m")
-    steps = TRAIN_STEPS + 1
-    stream = synthetic_lm_stream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
-    batches = [{k: torch.as_tensor(v, device=ctx.device) for k, v in stream.batch_at(i).items()}
-               for i in range(steps)]
-    # the launcher's schedule (train.build) at the first step
-    lr_1 = float(cosine_warmup(TRAIN_LR, min(100, steps // 10 + 1), steps)(1))
     for mod in mods.values():
         mod.launches = 0
     readings = {}
     for dp_mode in ("allreduce", "sop_gossip"):
-        opt, _ = train.build(cfg, dp_mode=dp_mode, lr=TRAIN_LR, steps=steps, group=ctx.group,
-                             world=ctx.world)
-        seen = {}
-
-        def update(grads, state, params, opt=opt, seen=seen):
-            seen["grads"] = [gr.detach().clone() for gr in grads]
-            return opt.update(grads, state, params)
-
-        rec = optim.Optimizer(init=opt.init, update=update)
-        sched = [[0]] if dp_mode == "sop_gossip" else None  # train.build's, at a world of one
-        step = make_train_step(cfg, rec, group=ctx.group, dp_mode=dp_mode,
-                               gossip_schedule=sched)
-        params = init_params(cfg, LM_SEED, device=ctx.device)
-        names = [n for n, _ in params.named_parameters()]
-        state = opt.init(params)
-        p0 = _clones(tree.leaves(params))
-        s0 = {"mu": _clones(state["mu"]), "nu": _clones(state["nu"])}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        params, state, m = step(params, state, batches[0], 0)  # the warm-up step
-        losses = [float(m["loss"])]
-        warm_s = time.perf_counter() - t0
-        adamw = check_adamw(torch, names, p0, seen["grads"], s0, state,
-                            tree.leaves(params), lr_1)
-        del p0, s0
-        times = []
-        for i in range(1, steps):
-            t0 = time.perf_counter()
-            params, state, m = step(params, state, batches[i], i)
-            losses.append(float(m["loss"]))  # one host read per step, as the launcher logs
-            times.append(time.perf_counter() - t0)
-        peak = torch.cuda.max_memory_allocated()
-        check(all(np.isfinite(losses)), f"main-train {dp_mode}: non-finite loss {losses}")
-        check(losses[-1] < losses[0], f"main-train {dp_mode}: the loss did not fall: {losses}")
+        r, m = train_and_time(torch, cfg, dp_mode, ctx.group, ctx.world, TRAIN_STEPS + 1,
+                              ADAMW_CHECK_LEAVES, f"main-train {dp_mode}")
         if dp_mode == "sop_gossip":
             check(float(m["consensus_sq"]) == 0.0, "main-train: consensus_sq at a world of one")
-        s_step = float(np.mean(times))
-        readings[dp_mode] = dict(
-            s_per_step=s_step, s_per_step_p50=float(np.median(times)), warmup_s=warm_s,
-            tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / s_step, peak_bytes=peak, losses=losses,
-            adamw=adamw)
+        readings[dp_mode] = r
+        losses = r["losses"]
         print(f"main-train: {cfg.name} dp={dp_mode} world={ctx.world} batch {TRAIN_BATCH} x "
-              f"{TRAIN_SEQ}: {s_step:.4f} s/step ({TRAIN_BATCH * TRAIN_SEQ / s_step:.0f} "
-              f"tokens/s) over {TRAIN_STEPS} steps after a {warm_s:.2f} s warm-up step; peak "
-              f"memory {peak / 2**30:.2f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+              f"{TRAIN_SEQ}: {r['s_per_step']:.4f} s/step ({r['tokens_per_s']:.0f} tokens/s) "
+              f"over {TRAIN_STEPS} steps after a {r['warmup_s']:.2f} s warm-up step; peak "
+              f"memory {r['peak_bytes'] / 2**30:.2f} GiB; loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}")
         print(f"main-train: dp={dp_mode} loss per step " + json.dumps(
             [round(x, 4) for x in losses]))
         print(f"main-train: dp={dp_mode} AdamW after one step vs the float64 formula "
               "(the new parameter's error over one bf16 ulp + 1e-6 (|p| + |u|), the "
               "moments' relative error): "
-              + json.dumps(adamw))
-        del params, state, m, seen
-        torch.cuda.empty_cache()
+              + json.dumps(r["adamw"]))
     torch.cuda.synchronize()
     launches = {name: mod.launches for name, mod in mods.items()}
     print("main-train: kernel launches " + json.dumps(launches))
@@ -2779,19 +2813,19 @@ TRAIN_ARGV = ["--arch", "mamba2-370m", "--variant", "full", "--steps", "3", "--b
               "--seq", "128", "--dp_mode", "sop_gossip", "--log_every", "1"]
 
 
-def run_train_launcher(torch) -> dict:
+def run_train_launcher(torch, argv=TRAIN_ARGV, label: str = "main-train") -> dict:
     """``python -m repro_torch.launch.train`` in a subprocess (one rank per
     card, NCCL): it must print ``done``."""
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
-    print("main-train: python -m repro_torch.launch.train " + " ".join(TRAIN_ARGV))
+    print(f"{label}: python -m repro_torch.launch.train " + " ".join(argv))
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train"] + TRAIN_ARGV,
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train"] + argv,
                          env=env, cwd=HERE, capture_output=True, text=True, timeout=600)
     lines = out.stdout.strip().splitlines()
     for line in lines:
-        print("main-train launcher: " + line)
+        print(f"{label} launcher: " + line)
     check(out.returncode == 0 and lines and lines[-1] == "done",
-          f"main-train: the launcher failed: {out.stderr[-2000:]}")
+          f"{label}: the launcher failed: {out.stderr[-2000:]}")
     return dict(launcher_s=time.perf_counter() - t0, lines=len(lines))
 
 
@@ -2866,6 +2900,186 @@ def compare_lm(torch, res) -> dict:
     print(f"main-lm: float32 kernel vs plain route ok ({how}): prefill logits, "
           f"{cfg.n_layers} final SSM states, {LM_DECODE_STEPS} teacher-forced decode steps")
     return readings
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: the dense family, smollm-135m at full width first.
+# ---------------------------------------------------------------------------
+
+DENSE_ARGV = ["--mode", "lm", "--variant", "full", "--batch", "4", "--prompt_len", "512",
+              "--gen", "32"]  # the launcher's default --arch: smollm-135m
+INTERNLM_ARGV = ["--mode", "lm", "--arch", "internlm2-1.8b", "--variant", "full", "--batch",
+                 "4", "--prompt_len", "512", "--gen", "32"]
+DENSE_TOL = (2e-4, 3e-4)  # tests/test_decode.py: the prefill, the decode steps
+DENSE_PREFILL = 509  # of the 512-token prompt; then 3 teacher-forced decode steps
+RING_WINDOW, RING_STEPS, RING_TOL = 64, 4, (3e-4, 4e-4)  # tests/test_decode.py:59's bounds
+DENSE_TRAIN_STEPS = 10
+DENSE_ADAMW_LEAVES = ("embed", "layers.0.attn.wq.w", "layers.29.mlp.wd.w",
+                      "layers.15.norm2.scale", "final_norm.scale")
+DENSE_TRAIN_ARGV = ["--arch", "smollm-135m", "--variant", "full", "--steps", "3"]
+DENSE_SMOKE = ("nemotron-4-15b", "qwen1.5-32b")  # on the card at the smoke variant
+
+
+def run_dense_serve(torch, mods, argv, arch: str) -> tuple[dict, dict, dict]:
+    """The LM launcher on a dense config at full width, launch counters set
+    to 0 before and read after: no kernel of the port is on this path."""
+    from repro_torch.launch import serve
+
+    print("main-dense: python -m repro_torch.launch.serve " + " ".join(argv))
+    for mod in mods.values():
+        mod.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: mod.launches for name, mod in mods.items()}
+    print(f"main-dense: {arch} kernel launches " + json.dumps(launches))
+    check(all(v == 0 for v in launches.values()),
+          f"main-dense: {arch} launched a kernel of the port: {launches}")
+    cfg = res["cfg"]
+    b, gen = (int(argv[argv.index(flag) + 1]) for flag in ("--batch", "--gen"))
+    check(cfg.name == arch and cfg.family == "dense" and cfg.dtype == "bfloat16",
+          f"main-dense: the launcher served {cfg.name}, expected {arch} at full width")
+    check(res["logits"].shape == (b, 1, cfg.vocab_size)
+          and bool(torch.isfinite(res["logits"]).all()), f"main-dense: {arch} prefill logits")
+    check(res["tokens"].shape == (b, gen) and int(res["tokens"].min()) >= 0
+          and int(res["tokens"].max()) < cfg.vocab_size, f"main-dense: {arch} tokens")
+    peak = torch.cuda.max_memory_allocated()
+    readings = dict(params=cfg.n_params(), prefill_s=res["prefill_s"], decode_s=res["decode_s"],
+                    tok_s=res["tok_s"], peak_bytes=peak, launcher_s=wall)
+    print(f"main-dense: {arch} ({cfg.n_params() / 1e6:.1f}M params, {cfg.dtype}) prefill "
+          f"{res['prefill_s']:.4f}s, decode {res['tok_s']:.1f} tok/s, peak memory "
+          f"{peak / 2**30:.2f} GiB, launcher {wall:.1f}s")
+    return launches, readings, res
+
+
+def decode_vs_forward(torch, cfg, params, tokens, n_prefill: int) -> dict:
+    """Prefill ``tokens[:, :n_prefill]``, decode the rest teacher-forced, and
+    the forward over all of ``tokens``: {"prefill": (got, want), "decode":
+    (got, want)}, the forward's logits at the same positions as ``want``."""
+    from repro_torch.models import decode_step, forward_logits, init_cache, prefill
+
+    b, s = tokens.shape
+    with torch.inference_mode():
+        full, _ = forward_logits(cfg, params, {"tokens": tokens})
+        cache = init_cache(cfg, b, s, device=tokens.device)
+        logits, cache = prefill(cfg, params, {"tokens": tokens[:, :n_prefill]}, cache)
+        steps = []
+        for t in range(n_prefill, s):
+            step, cache = decode_step(cfg, params, tokens[:, t:t + 1], cache, t)
+            steps.append(step)
+    return {"prefill": (logits[:, 0], full[:, n_prefill - 1]),
+            "decode": (torch.cat(steps, dim=1), full[:, n_prefill:])}
+
+
+def check_decode(torch, cfg, params, tokens, n_prefill: int, tol, label: str) -> dict:
+    """Decode against forward in float32 at ``tol`` (prefill, decode steps),
+    abs + rel; should a side differ by more, both are held to the same
+    weights in float64 and the decode route's error may be at most
+    LM_WITNESS_FACTOR times the forward's."""
+    import copy
+
+    got = decode_vs_forward(torch, cfg, params, tokens, n_prefill)
+    readings, ok = {}, True
+    for (key, (a, b)), t in zip(got.items(), tol):
+        check(bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all()),
+              f"{label}: non-finite {key} logits")
+        readings[key] = dict(max_abs_diff=max_err(a, b), max_abs=float(b.abs().max()), tol=t)
+        ok &= excess(a, b, t) <= t
+    if not ok:
+        p64 = copy.deepcopy(params).double()
+        wit = decode_vs_forward(torch, dataclasses.replace(cfg, dtype="float64"), p64,
+                                tokens, n_prefill)
+        for key, (a, b) in got.items():
+            w = wit[key][1]
+            r = readings[key]
+            r.update(decode_vs_f64=max_err(a, w), forward_vs_f64=max_err(b, w))
+            check(r["decode_vs_f64"] <= LM_WITNESS_FACTOR * max(r["forward_vs_f64"], 1e-12),
+                  f"{label}: {key} beyond {r['tol']} and the decode route's error against "
+                  f"the float64 witness exceeds {LM_WITNESS_FACTOR} x the forward's: "
+                  + json.dumps(readings))
+        del p64
+    how = "within" if ok else "held to the float64 witness beyond"
+    print(f"{label}: decode vs forward {how} {tol[0]} / {tol[1]} abs + rel: "
+          + json.dumps(readings))
+    return readings
+
+
+def run_dense_train(torch, mods) -> tuple[dict, dict]:
+    """smollm-135m at full width (bf16, random weights from seed 0) trained
+    with the launcher's build at batch 8 x 128 and a world of one (no
+    group): a warm-up step, then 10 timed steps, launch counters set to 0
+    before and read after; the AdamW update of five leaves after the first
+    step against the float64 formula; then the launcher itself."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("smollm-135m")
+    for mod in mods.values():
+        mod.launches = 0
+    readings, _ = train_and_time(torch, cfg, "allreduce", None, 1, DENSE_TRAIN_STEPS + 1,
+                                 DENSE_ADAMW_LEAVES, "main-dense train")
+    torch.cuda.synchronize()
+    launches = {name: mod.launches for name, mod in mods.items()}
+    print("main-dense: train kernel launches " + json.dumps(launches))
+    check(all(v == 0 for v in launches.values()),
+          f"main-dense: the train step launched a kernel of the port: {launches}")
+    losses = readings["losses"]
+    print(f"main-dense: train {cfg.name} ({readings['leaves']} leaves) world=1 batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: {readings['s_per_step']:.4f} s/step "
+          f"({readings['tokens_per_s']:.0f} tokens/s) over {DENSE_TRAIN_STEPS} steps after a "
+          f"{readings['warmup_s']:.2f} s warm-up step; peak memory "
+          f"{readings['peak_bytes'] / 2**30:.2f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    print("main-dense: train loss per step " + json.dumps([round(x, 4) for x in losses]))
+    print("main-dense: AdamW after one step vs the float64 formula: "
+          + json.dumps(readings["adamw"]))
+    readings["launcher"] = run_train_launcher(torch, DENSE_TRAIN_ARGV, "main-dense")
+    return launches, readings
+
+
+def run_dense(torch, mods) -> tuple[dict, dict]:
+    """Phase 4b: smollm-135m served at full width through the launcher's
+    default --arch; its decode against its forward in float32 (and the bf16
+    model's own difference, printed); the ring cache at a window of 64;
+    training; internlm2-1.8b served at full width; nemotron-4-15b and
+    qwen1.5-32b at the smoke variant.  Every launch counter stays 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    launches, readings, res = run_dense_serve(torch, mods, DENSE_ARGV, "smollm-135m")
+    cfg, params, prompt = res["cfg"], res["params"], res["prompt"]
+    a, b = (t.float() for t in decode_vs_forward(torch, cfg, params, prompt,
+                                                  DENSE_PREFILL)["decode"])
+    readings["bf16_decode_vs_forward"] = max_err(a, b)
+    print(f"main-dense: bf16 decode vs forward (not gated): max |d| "
+          f"{readings['bf16_decode_vs_forward']:.4g} at |logits| up to "
+          f"{float(b.abs().max()):.4g}")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with torch.inference_mode():  # the launcher made them as inference tensors
+        p32 = params.float()  # the same weights, cast in place
+    readings["f32"] = check_decode(torch, cfg32, p32, prompt, DENSE_PREFILL, DENSE_TOL,
+                                   "main-dense float32")
+    ring = torch.cat([prompt, res["tokens"][:, :RING_STEPS]], dim=1)
+    readings["ring"] = check_decode(
+        torch, dataclasses.replace(cfg32, sliding_window=RING_WINDOW), p32, ring,
+        prompt.shape[1], RING_TOL, f"main-dense ring (window {RING_WINDOW})")
+    del res, params, p32
+    torch.cuda.empty_cache()
+    train_launches, readings["train"] = run_dense_train(torch, mods)
+    intern_launches, readings["internlm2"], res = run_dense_serve(torch, mods, INTERNLM_ARGV,
+                                                                  "internlm2-1.8b")
+    del res
+    torch.cuda.empty_cache()
+    for arch in DENSE_SMOKE:
+        cfg = get_config(arch, variant="smoke")
+        gen = torch.Generator(device="cuda").manual_seed(LM_SEED)
+        toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen, device="cuda")
+        readings[arch] = check_decode(torch, cfg, init_params(cfg, LM_SEED, device="cuda"),
+                                      toks, 9, DENSE_TOL, f"main-dense {cfg.name} float32")
+    total = {name: launches[name] + train_launches[name] + intern_launches[name]
+             for name in mods}
+    return total, readings
 
 
 # ---------------------------------------------------------------------------
@@ -3062,10 +3276,19 @@ def run() -> int:
           f"prefill {lm['prefill_s']:.4f}s, decode {lm['tok_s']:.1f} tok/s, "
           f"launcher {time.perf_counter() - t0:.1f}s")
     lm_readings = compare_lm(torch, lm)
+    del lm
+    torch.cuda.empty_cache()
+
+    # 4b. the dense family: smollm-135m at full width, then the other three ---
+    t0 = time.perf_counter()
+    dense_launches, dense_readings = run_dense(torch, mods)
+    dense_readings["phase_s"] = time.perf_counter() - t0
+    print("main-dense: " + json.dumps(dense_readings))
     # each path's launches, counted from 0 around its run (rbf_gram: on none)
     by_path = {"field": launches, "stream": stream_launches, "churn": churn_launches,
                "faults": fault_launches, "daemon": daemon_launches, "prune": prune_launches,
-               "sharded": sharded_launches, "train": train_launches, "lm": lm_launches}
+               "sharded": sharded_launches, "train": train_launches, "lm": lm_launches,
+               "dense": dense_launches}
 
     # 5. report --------------------------------------------------------------
     meta = {

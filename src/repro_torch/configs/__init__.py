@@ -1,18 +1,29 @@
 """Architecture registry of the port.
 
-Usage:  cfg = get_config("mamba2-370m")
-        cfg = get_config("mamba2-370m", variant="smoke")  # reduced smoke config
+Usage:  cfg = get_config("smollm-135m")
+        cfg = get_config("smollm-135m", variant="long")   # sliding-window attention
+        cfg = get_config("smollm-135m", variant="smoke")  # reduced smoke config
 
-The names are the reference's (``repro.configs.ARCH_NAMES``); only
-``mamba2-370m`` is ported.  The others need attention, MLP, MoE,
-encoder-decoder or VLM layers, which come with ROADMAP Queue 1 item 9, and
-``get_config`` refuses them.
+The names are the reference's (``repro.configs.ARCH_NAMES``).  Ported: the
+dense decoders ``smollm-135m``, ``internlm2-1.8b``, ``nemotron-4-15b`` and
+``qwen1.5-32b``, and the SSM ``mamba2-370m``.  The other five need MoE,
+hybrid, VLM or encoder-decoder layers (ROADMAP Queue 1 items 9.2-9.5), and
+``get_config`` refuses them, naming their item.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 from ..models.config import ModelConfig, reduced
-from . import mamba2_370m, sensor_field
+from . import (
+    internlm2_1_8b,
+    mamba2_370m,
+    nemotron_4_15b,
+    qwen1_5_32b,
+    sensor_field,
+    smollm_135m,
+)
 
 ARCH_NAMES = [
     "smollm-135m",
@@ -27,20 +38,51 @@ ARCH_NAMES = [
     "qwen1.5-32b",
 ]
 
-_MODULES = {"mamba2-370m": mamba2_370m}
+_MODULES = {
+    "smollm-135m": smollm_135m,
+    "internlm2-1.8b": internlm2_1_8b,
+    "mamba2-370m": mamba2_370m,
+    "nemotron-4-15b": nemotron_4_15b,
+    "qwen1.5-32b": qwen1_5_32b,
+}
+
+# the ROADMAP Queue 1 item that ports each remaining architecture
+_UNPORTED = {
+    "llama4-scout-17b-a16e": ("MoE layers", "9.2"),
+    "qwen3-moe-30b-a3b": ("MoE layers", "9.2"),
+    "jamba-1.5-large-398b": ("the attention/Mamba2/MoE hybrid stack", "9.3"),
+    "qwen2-vl-2b": ("VLM patches and M-RoPE", "9.4"),
+    "whisper-tiny": ("the encoder-decoder stack with LayerNorm", "9.5"),
+}
+
+# sliding window used for the long_500k sub-quadratic variant of attention archs
+LONG_CONTEXT_WINDOW = 8192
+
+
+def long_context_variant(cfg: ModelConfig) -> ModelConfig:
+    """Sub-quadratic variant for long contexts: SSM is natively O(1)-state;
+    attention-bearing archs get a sliding window (a ring-buffer KV cache of
+    LONG_CONTEXT_WINDOW slots)."""
+    if cfg.family == "ssm":
+        return cfg
+    if cfg.is_encoder_decoder:
+        raise ValueError(f"{cfg.name}: long_500k is skipped for enc-dec")
+    return dataclasses.replace(cfg, sliding_window=LONG_CONTEXT_WINDOW)
 
 
 def get_config(name: str, *, variant: str | None = None) -> ModelConfig:
     if name not in ARCH_NAMES:
         raise ValueError(f"unknown architecture {name!r}")
-    if name not in _MODULES:
+    if name in _UNPORTED:
+        what, item = _UNPORTED[name]
         raise NotImplementedError(
-            f"{name} is not ported yet: its attention/MLP/MoE layers come with "
-            "ROADMAP Queue 1 item 9 (the LLM stack)"
+            f"{name} is not ported yet ({what}: ROADMAP Queue 1 item {item})"
         )
     cfg = _MODULES[name].config()
     if variant in (None, "full"):
         return cfg
+    if variant == "long":
+        return long_context_variant(cfg)
     if variant == "smoke":
         return reduced(cfg)
     raise ValueError(f"unknown variant {variant!r}")
@@ -51,4 +93,5 @@ def sensor_field_config() -> sensor_field.SensorFieldConfig:
     return sensor_field.config()
 
 
-__all__ = ["ARCH_NAMES", "get_config", "sensor_field_config"]
+__all__ = ["ARCH_NAMES", "LONG_CONTEXT_WINDOW", "get_config", "long_context_variant",
+           "sensor_field_config"]

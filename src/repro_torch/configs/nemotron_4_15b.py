@@ -1,0 +1,24 @@
+"""nemotron-4-15b [dense] — GQA, squared-ReLU [arXiv:2402.16819].
+
+32L d_model=6144 48H (GQA kv=8) d_ff=24576 vocab=256000.
+"""
+
+from ..models.config import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="nemotron-4-15b",
+        family="dense",
+        n_layers=32,
+        d_model=6144,
+        n_heads=48,
+        n_kv_heads=8,
+        head_dim=128,
+        d_ff=24576,
+        vocab_size=256000,
+        act="squared_relu",
+        rope_theta=10000.0,
+        dtype="bfloat16",
+        fsdp=True,
+    )

@@ -6,8 +6,8 @@ leaves, read out as numpy arrays, become the port's dataclasses on
 prefix (``"topology.positions"``, ``"layout.slot_owner"``).  Static fields
 (``n_stream``, ``topology.n_colors``, ``grid_shape``, ``k``, ...) are
 plain Python values in the same dict.  The reference's LM parameter tree
-becomes the port's ``Decoder`` (``lm_params_from_numpy``).  Dtypes are kept
-as given.
+becomes the port's ``Decoder`` (``lm_params_from_numpy``), one attention or
+MLP tree an ``Attention`` or ``MLP``.  Dtypes are kept as given.
 """
 
 from __future__ import annotations
@@ -108,6 +108,31 @@ def ssm_mixer_from_numpy(tree: dict, *, device: str | torch.device = "cuda") -> 
     )
 
 
+def _dense(flat: dict, prefix: str, dev: torch.device) -> L.Dense:
+    b = flat.get(prefix + ".b")
+    return L.Dense(_tensor(flat[prefix + ".w"], dev), None if b is None else _tensor(b, dev))
+
+
+def attention_from_numpy(tree: dict, *, device: str | torch.device = "cuda") -> L.Attention:
+    """One ``Attention`` on ``device`` from the reference's ``attn_init`` tree
+    (``wq.w``, ``wq.b``, ...) read out as numpy; nothing is transposed."""
+    dev = _device.resolve(device)
+    flat = _flatten(tree)
+    return L.Attention(*(_dense(flat, name, dev) for name in ("wq", "wk", "wv", "wo")))
+
+
+def mlp_from_numpy(tree: dict, *, device: str | torch.device = "cuda") -> L.MLP:
+    """One ``MLP`` on ``device`` from the reference's ``mlp_init`` tree."""
+    dev = _device.resolve(device)
+    flat = _flatten(tree)
+    wg = _dense(flat, "wg", dev) if "wg.w" in flat else None
+    return L.MLP(_dense(flat, "wu", dev), _dense(flat, "wd", dev), wg)
+
+
+def _sub(d: dict, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in d.items() if k.startswith(prefix)}
+
+
 def lm_params_from_numpy(
     tree: dict, cfg: ModelConfig, *, device: str | torch.device = "cuda"
 ) -> T.Decoder:
@@ -115,24 +140,31 @@ def lm_params_from_numpy(
 
     ``tree`` is the reference's ``init_params`` output read out as numpy
     (nested dicts, or one dict with dotted keys): ``embed``,
-    ``final_norm.scale`` and ``blocks.layer0.{norm1.scale, ssm.*}`` with a
-    leading ``n_blocks`` axis, one block per layer.
+    ``final_norm.scale``, ``lm_head`` where the head is untied, and
+    ``blocks.layer0.*`` with a leading ``n_blocks`` axis, one block per
+    layer: ``norm1.scale`` and ``ssm.*`` for a mixer; ``norm1.scale``,
+    ``attn.{wq,wk,wv,wo}.{w,b}``, ``norm2.scale`` and ``mlp.{wg,wu,wd}.w``
+    for an attention layer.
     """
     dev = _device.resolve(device)
     T.check_supported(cfg)
     flat = _flatten(tree)
-    stacked = {k[len("blocks.layer0."):]: np.asarray(v) for k, v in flat.items()
-               if k.startswith("blocks.layer0.")}
+    stacked = {k: np.asarray(v) for k, v in _sub(flat, "blocks.layer0.").items()}
     for key, v in stacked.items():
         if v.shape[0] != cfg.n_layers:
             raise ValueError(f"{key}: leading axis {v.shape[0]}, expected {cfg.n_layers}")
     layers = []
     for i in range(cfg.n_layers):
-        mixer = ssm_mixer_from_numpy(
-            {k[len("ssm."):]: v[i] for k, v in stacked.items() if k.startswith("ssm.")},
-            device=dev,
-        )
-        norm1 = L.RMSNorm(_tensor(stacked["norm1.scale"][i], dev))
-        layers.append(T.MixerLayer(norm1, mixer))
+        one = {k: v[i] for k, v in stacked.items()}
+        norm1 = L.RMSNorm(_tensor(one["norm1.scale"], dev))
+        if cfg.layer_kind(i) == "m":
+            layers.append(T.MixerLayer(norm1, ssm_mixer_from_numpy(_sub(one, "ssm."),
+                                                                   device=dev)))
+        else:
+            layers.append(T.AttnLayer(norm1, attention_from_numpy(_sub(one, "attn."), device=dev),
+                                      L.RMSNorm(_tensor(one["norm2.scale"], dev)),
+                                      mlp_from_numpy(_sub(one, "mlp."), device=dev)))
+    head = flat.get("lm_head")
     return T.Decoder(_tensor(flat["embed"], dev),
-                     L.RMSNorm(_tensor(flat["final_norm.scale"], dev)), layers)
+                     L.RMSNorm(_tensor(flat["final_norm.scale"], dev)), layers,
+                     None if head is None else _tensor(head, dev))

@@ -1,6 +1,7 @@
 """Where the LM serving path's time goes on the card: one prefill and 8
-decode steps of ``mamba2-370m`` at full width (chip_smoke's main-lm
-geometry: B=4, a 512-token prompt, seed 0) under ``torch.profiler``.
+decode steps of ``--arch`` (default ``mamba2-370m``) at full width
+(chip_smoke's main-lm and main-dense geometry: B=4, a 512-token prompt,
+seed 0) under ``torch.profiler``.
 
 For each window it prints the wall time, the device time summed over every
 kernel, the device's idle share (1 - device / wall; the profiler's own host
@@ -8,6 +9,7 @@ cost inflates it) and the kernels that took the most device time, then one
 JSON line with the same numbers.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_lm --engine cuda
+  PYTHONPATH=src python -m repro_torch.launch.profile_lm --arch smollm-135m
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .. import device as _device
-from ..configs import get_config
+from ..configs import ARCH_NAMES, get_config
 from ..models import decode_step, init_cache, init_params, prefill
 
 BATCH, PROMPT_LEN, DECODE_STEPS, SEED, TOP = 4, 512, 8, 0, 8
@@ -53,11 +55,13 @@ def _window(fn, dev: torch.device) -> dict:
 @torch.inference_mode()
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="mamba2-370m", choices=ARCH_NAMES)
     ap.add_argument("--engine", default="cuda", choices=["cuda", "plan"],
-                    help="cuda: the ssd_intra kernel; plan: the plain ssd_chunked")
+                    help="cuda: the ssd_intra kernel; plan: the plain ssd_chunked "
+                         "(the same code for a dense decoder)")
     args = ap.parse_args(argv)
     dev = _device.resolve("cuda")
-    cfg = dataclasses.replace(get_config("mamba2-370m"), ssd_fused=args.engine == "cuda")
+    cfg = dataclasses.replace(get_config(args.arch), ssd_fused=args.engine == "cuda")
     params = init_params(cfg, SEED, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), generator=gen, device=dev)

@@ -1,14 +1,15 @@
-"""Where the train step's time goes on the card: ``mamba2-370m`` at full
-width (chip_smoke's main-train geometry: batch 8 x 128, AdamW on the
-launcher's cosine schedule, seed 0) over an NCCL group of one, under
-``torch.profiler``.  After two warm-up steps, one step is profiled in its
-three parts: the forward and backward (``loss_fn`` + ``autograd.grad``),
-the optimizer (``update`` + ``apply_updates``), and the gossip
-(``gossip_round`` + ``consensus_sq_distance``).  For each window it prints
+"""Where the train step's time goes on the card: ``--arch`` (default
+``mamba2-370m``) at full width (chip_smoke's main-train and main-dense
+geometry: batch 8 x 128, AdamW on the launcher's cosine schedule, seed 0)
+over an NCCL group of one, under ``torch.profiler``.  After two warm-up
+steps, one step is profiled in its three parts: the forward and backward
+(``loss_fn`` + ``autograd.grad``), the optimizer (``update`` +
+``apply_updates``), and the gossip (``gossip_round`` +
+``consensus_sq_distance``).  For each window it prints
 the wall time, the device time summed over every kernel, the idle share
 and the kernels that took the most device time (``profile_lm._window``),
 then one JSON line with the same numbers.
-  python -m repro_torch.launch.profile_train
+  python -m repro_torch.launch.profile_train [--arch smollm-135m]
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 import torch.distributed as dist
 
 from .. import distributed, tree
-from ..configs import get_config
+from ..configs import ARCH_NAMES, get_config
 from ..core import consensus
 from ..data import synthetic_lm_stream
 from ..models import init_params, loss_fn
@@ -32,9 +33,11 @@ BATCH, SEQ, LR, STEPS, SEED = 8, 128, 3e-4, 21, 0
 
 
 def main(argv: list[str] | None = None) -> dict:
-    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args(argv)
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="mamba2-370m", choices=ARCH_NAMES)
+    args = ap.parse_args(argv)
     ctx = distributed.init_group(0, 1, device="cuda")
-    cfg = get_config("mamba2-370m")
+    cfg = get_config(args.arch)
     opt, step = build(cfg, dp_mode="sop_gossip", lr=LR, steps=STEPS, group=ctx.group,
                       world=1)
     params = init_params(cfg, SEED, device=ctx.device)

@@ -21,12 +21,14 @@ SN-Train sweep, then one query grid is answered under each rule given to
 serves kNN with the knn_fuse kernel; ``plan`` and ``dense`` run the plain
 PyTorch engines.
 
-``--mode lm`` serves ``--arch`` (only ``mamba2-370m`` is ported) from
-random weights made from ``--seed``: one prompt of ``--batch`` x
-``--prompt_len`` random tokens is prefilled, then ``--gen`` tokens are
-decoded greedily against the SSM cache.  ``--engine cuda`` runs the prefill's
-SSD intra-chunk term in the ssd_intra kernel (``ssd_fused=True``);
-``plan`` runs the plain ``ssd_chunked``.
+``--mode lm`` serves ``--arch`` (default ``smollm-135m``, as in the
+reference; the dense decoders and ``mamba2-370m`` are ported) from random
+weights made from ``--seed``: one prompt of ``--batch`` x ``--prompt_len``
+random tokens is prefilled, then ``--gen`` tokens are decoded greedily
+against the KV (attention) or SSM cache.  ``--engine cuda`` runs the
+prefill's SSD intra-chunk term in the ssd_intra kernel (``ssd_fused=True``);
+``plan`` runs the plain ``ssd_chunked``.  A dense decoder has no SSM layer,
+so both engines run the same code for it.
 
 ``--stream A`` absorbs A arrivals after training, as the reference does:
 the topology gets ``ceil(A / n) + 4`` lanes of headroom, the arrivals are
@@ -548,7 +550,8 @@ def serve_lm(args: argparse.Namespace) -> dict:
     One prefill and one decode step run first as a warm-up, so the timed
     prefill and decode hold no one-time costs (kernel loading, library
     handles).  Returns ``cfg``, ``params``, ``prompt``, the timed prefill's
-    last-position ``logits`` (B, 1, V) and ``prefill_cache``, the generated
+    last-position ``logits`` (B, 1, V) and ``prefill_cache`` (a clone: the
+    decode steps write the attention caches in place), the generated
     ``tokens`` (B, gen), the final ``cache``, the timings and
     ``prefill_calls`` (prefills run, the warm-up included).
     """
@@ -577,7 +580,8 @@ def serve_lm(args: argparse.Namespace) -> dict:
     prefill_s = time.perf_counter() - t0
     print(f"prefill: {prefill_s:.4f}s ({b}x{s0} tokens)")
 
-    res = dict(cfg=cfg, params=params, prompt=prompt, logits=logits, prefill_cache=cache,
+    res = dict(cfg=cfg, params=params, prompt=prompt, logits=logits,
+               prefill_cache=[{k: v.clone() for k, v in c.items()} for c in cache],
                prefill_s=prefill_s, prefill_calls=2)
     out = []
     t0 = time.perf_counter()
@@ -611,7 +615,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
     ap.add_argument("--seed", type=int, default=0)
     # --mode lm
-    ap.add_argument("--arch", default="mamba2-370m", choices=ARCH_NAMES)
+    ap.add_argument("--arch", default="smollm-135m", choices=ARCH_NAMES)
     ap.add_argument("--variant", default="smoke", choices=["smoke", "full"])
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt_len", type=int, default=32)
@@ -639,8 +643,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--k", type=int, default=3, help="kNN order for --fusion knn")
     ap.add_argument("--engine", default="cuda", choices=["cuda", "plan", "dense"],
                     help="cuda: the CUDA kernels (field: color step and knn_fuse; "
-                         "lm: ssd_intra); plan/dense: the plain PyTorch engines "
-                         "(lm takes plan)")
+                         "lm: ssd_intra, for SSM layers); plan/dense: the plain PyTorch "
+                         "engines (lm takes plan)")
     ap.add_argument("--serve_dtype", default="f32", choices=["f32", "bf16"],
                     help="anchor-table storage dtype for the plan/cuda kNN engines")
     ap.add_argument("--repair_lambda", action="store_true",

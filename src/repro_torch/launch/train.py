@@ -19,10 +19,12 @@ Metrics are averaged over the group.  ``--ckpt_dir`` saves every
 ``--ckpt_every`` steps from rank 0, in the reference's layout: the
 parameters' and optimizer state's leaves stacked on a leading replica axis;
 a restart restores each rank's replica and resumes at the saved step.
-Only ``mamba2-370m`` is ported; other archs raise ``NotImplementedError``.
+``--arch`` defaults to ``smollm-135m``, as in the reference; the dense
+decoders and ``mamba2-370m`` are ported, and the other archs raise
+``NotImplementedError``.
 
 Example (CPU):
-  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \\
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
     --variant smoke --steps 3 --batch 4 --seq 32 --dp_mode sop_gossip \\
     --log_every 1 --device cpu --world 2
 """
@@ -138,7 +140,7 @@ def _config(args: argparse.Namespace):
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
-    ap.add_argument("--arch", default="mamba2-370m", choices=ARCH_NAMES)
+    ap.add_argument("--arch", default="smollm-135m", choices=ARCH_NAMES)
     ap.add_argument("--variant", default="smoke", choices=["smoke", "full"])
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8, help="global batch")

@@ -1,4 +1,5 @@
-"""The port's model stack: the Mamba2 (SSM family), serving and training."""
+"""The port's model stack: dense decoders (GQA attention + MLP) and Mamba2
+(SSM family), serving and training."""
 
 from .config import ModelConfig, reduced
 from .model import (

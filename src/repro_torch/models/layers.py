@@ -1,13 +1,18 @@
-"""Shared layers of the port's model stack: init helpers, dense, norms.
+"""Shared layers of the port's model stack: init helpers, dense, norms, RoPE,
+GQA attention with its ring-buffer KV cache, and the MLPs.
 
-The subset of the reference's ``repro.models.layers`` that the SSM family
-uses.  Conventions:
+The subset of the reference's ``repro.models.layers`` that the SSM and
+dense families use (M-RoPE, LayerNorm and MoE are not ported yet).
+Conventions:
   * weights keep the reference's layouts (a dense weight is (d_in, d_out),
     applied as ``x @ w``), so the reference's parameters carry across as
     they are (``repro_torch.convert.lm_params_from_numpy``);
   * every init helper draws from an explicit ``torch.Generator``;
-  * activations follow ``cfg.dtype``; norm and SSM math run in float32, or
-    in float64 for a float64 model (``wide``).
+  * activations follow ``cfg.dtype``; norm, RoPE-angle, softmax and SSM
+    math run in float32, or in float64 for a float64 model (``wide``).
+
+Shapes: B batch, S sequence, d model dim, H query heads, K kv heads, hd
+head dim.
 """
 
 from __future__ import annotations
@@ -40,11 +45,33 @@ def param(t: torch.Tensor) -> nn.Parameter:
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype: torch.dtype) -> nn.Parameter:
+    """A bare (d_in, d_out) weight, as the SSM mixer holds its projections."""
     return param(_normal(gen, (d_in, d_out), d_in**-0.5, dtype))
 
 
-def dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    return x @ w
+class Dense(nn.Module):
+    """The reference's ``{"w", "b"}`` dense parameters: ``w`` (d_in, d_out)
+    and, where the layer has one, the bias ``b`` (d_out,)."""
+
+    def __init__(self, w: torch.Tensor, b: torch.Tensor | None = None):
+        super().__init__()
+        self.w = param(w)
+        self.register_parameter("b", None if b is None else param(b))
+
+
+def linear_init(gen: torch.Generator, d_in: int, d_out: int, dtype: torch.dtype, *,
+                bias: bool = False) -> Dense:
+    """The reference's ``dense_init``: a ``Dense`` with a zero bias if ``bias``."""
+    w = _normal(gen, (d_in, d_out), d_in**-0.5, dtype)
+    return Dense(w, torch.zeros(d_out, dtype=dtype, device=gen.device) if bias else None)
+
+
+def dense(p: torch.Tensor | Dense, x: torch.Tensor) -> torch.Tensor:
+    """``x @ w``, plus the bias where ``p`` is a ``Dense`` that has one."""
+    if isinstance(p, torch.Tensor):
+        return x @ p
+    y = x @ p.w
+    return y if p.b is None else y + p.b
 
 
 class RMSNorm(nn.Module):
@@ -58,7 +85,7 @@ class RMSNorm(nn.Module):
 def norm_init(cfg: ModelConfig, device: torch.device) -> RMSNorm:
     if cfg.norm != "rmsnorm":
         raise NotImplementedError(
-            f"norm={cfg.norm!r} is not ported yet (ROADMAP Queue 1 item 9)"
+            f"norm={cfg.norm!r} is not ported yet (ROADMAP Queue 1 item 9.5)"
         )
     return RMSNorm(torch.ones(cfg.d_model, dtype=cdtype(cfg), device=device))
 
@@ -80,3 +107,201 @@ def rms_norm_gated(scale: torch.Tensor, x: torch.Tensor, gate: torch.Tensor) -> 
     xf = (x * F.silu(gate)).to(wide(x.dtype))
     ms = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(ms + 1e-6) * scale.to(xf.dtype)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (standard mode)
+# ---------------------------------------------------------------------------
+
+
+def _inv_freq(hd: int, theta: float, dtype: torch.dtype, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=dtype, device=device) / hd))
+
+
+def rope_angles(cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
+    """Angles (B, S, hd // 2) for positions (B, S): ``positions * inv_freq``
+    in float32 (float64 for a float64 model)."""
+    if cfg.rope_mode == "mrope":
+        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP Queue 1 item 9.4)")
+    wd = wide(cdtype(cfg))
+    inv = _inv_freq(cfg.hd, cfg.rope_theta, wd, positions.device)
+    return positions.to(wd)[..., None] * inv
+
+
+def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, n, hd); angles: (B, S, hd // 2).  The half-rotation (NeoX)
+    layout; cos and sin are taken at the angles' width, then cast to
+    ``x.dtype`` before they multiply, as the reference does."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, causal, sliding window, KV cache)
+# ---------------------------------------------------------------------------
+
+
+class Attention(nn.Module):
+    """The reference's ``attn_init`` tree: ``wq`` (d, H hd), ``wk`` and ``wv``
+    (d, K hd), each with a bias under ``qkv_bias``, and ``wo`` (H hd, d)."""
+
+    def __init__(self, wq: Dense, wk: Dense, wv: Dense, wo: Dense):
+        super().__init__()
+        self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
+
+
+def attn_init(gen: torch.Generator, cfg: ModelConfig) -> Attention:
+    d, hd, dt, bias = cfg.d_model, cfg.hd, cdtype(cfg), cfg.qkv_bias
+    return Attention(
+        linear_init(gen, d, cfg.n_heads * hd, dt, bias=bias),
+        linear_init(gen, d, cfg.n_kv_heads * hd, dt, bias=bias),
+        linear_init(gen, d, cfg.n_kv_heads * hd, dt, bias=bias),
+        linear_init(gen, cfg.n_heads * hd, d, dt),
+    )
+
+
+def _qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor, angles: torch.Tensor):
+    b, s, _ = x.shape
+    hd = cfg.hd
+    q = dense(p.wq, x).reshape(b, s, cfg.n_heads, hd)
+    k = dense(p.wk, x).reshape(b, s, cfg.n_kv_heads, hd)
+    v = dense(p.wv, x).reshape(b, s, cfg.n_kv_heads, hd)
+    return apply_rope(q, angles), apply_rope(k, angles), v
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+          cfg: ModelConfig) -> torch.Tensor:
+    """q: (B, Sq, H, hd), k/v: (B, Sk, K, hd), mask: (B, Sq, Sk) bool -> (B, Sq, H hd).
+
+    As in the reference: query head h reads kv head h // (H / K) (q is
+    viewed as (B, Sq, K, rep, hd)); q k^T is formed in the activation dtype
+    and only then widened, so bf16 logits are rounded once before the
+    hd^-1/2 scale; masked logits are -1e30 (a fully masked row averages
+    v); the probabilities are cast to v's dtype before the PV product.
+    """
+    b, sq, h, hd = q.shape
+    kheads = k.shape[2]
+    q = q.reshape(b, sq, kheads, h // kheads, hd)
+    logits = torch.einsum("bqkrh,bskh->bkrqs", q, k).to(wide(q.dtype))
+    logits = logits * (hd**-0.5)
+    logits = torch.where(mask[:, None, None, :, :], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkrqs,bskh->bqkrh", probs, v)
+    return out.reshape(b, sq, h * hd)
+
+
+def causal_mask(sq: int, sk: int, *, window: int = 0, offset: int = 0,
+                device=None) -> torch.Tensor:
+    """(sq, sk) bool; query i (absolute position offset + i) sees key j iff
+    j <= offset + i and (window == 0 or offset + i - j < window)."""
+    qp = offset + torch.arange(sq, device=device)[:, None]
+    kp = torch.arange(sk, device=device)[None, :]
+    m = kp <= qp
+    if window:
+        m &= (qp - kp) < window
+    return m
+
+
+def attn_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, angles: torch.Tensor, *,
+                 window: int = 0) -> torch.Tensor:
+    """Full-sequence causal attention (training / prefill)."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, cfg, x, angles)
+    mask = causal_mask(s, s, window=window, device=x.device).expand(b, s, s)
+    return dense(p.wo, _sdpa(q, k, v, mask, cfg))
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, length: int, dtype, device) -> dict:
+    """Ring-buffer KV cache. ``length`` = the full sequence for dense
+    attention, the window for sliding-window attention; ``pos`` holds each
+    slot's absolute position, -1 where empty."""
+    shape = (batch, length, cfg.n_kv_heads, cfg.hd)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full((batch, length), -1, dtype=torch.int32, device=device),
+    }
+
+
+def attn_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor, cache: dict, position: int,
+                *, window: int = 0) -> tuple[torch.Tensor, dict]:
+    """One decode step, x (B, 1, d), against a ring-buffer cache.
+
+    ``position`` is the new token's absolute position, a host int.  Its key
+    and value are written IN PLACE at slot ``position % length`` of
+    ``cache`` (the reference returns a new cache); the returned cache is
+    the one passed in.  Keys attend where ``0 <= pos <= position`` and,
+    with a window, ``position - pos < window``.
+    """
+    b = x.shape[0]
+    length = cache["k"].shape[1]
+    pos = torch.full((b, 1), position, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv(p, cfg, x, rope_angles(cfg, pos))
+    slot = position % length
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    cache["pos"][:, slot] = position
+    kpos = cache["pos"]
+    valid = (kpos >= 0) & (kpos <= position)
+    if window:
+        valid &= (position - kpos) < window
+    out = _sdpa(q, cache["k"], cache["v"], valid[:, None, :], cfg)
+    return dense(p.wo, out), cache
+
+
+def prefill_into_cache(p: Attention, cfg: ModelConfig, x: torch.Tensor, angles, cache: dict,
+                       *, window: int = 0) -> tuple[torch.Tensor, dict]:
+    """Full-sequence attention that also writes k and v into the cache.
+
+    The prompt starts at position 0; the (at most ``length``) most recent
+    positions land in their ring slots ``position % length``.  Written IN
+    PLACE into ``cache``, which is returned.
+    """
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, cfg, x, angles)
+    out = _sdpa(q, k, v, causal_mask(s, s, window=window, device=x.device).expand(b, s, s), cfg)
+    length = cache["k"].shape[1]
+    start = max(0, s - length)
+    kept_pos = torch.arange(start, s, dtype=torch.int32, device=x.device)
+    slots = (kept_pos % length).long()
+    cache["k"].index_copy_(1, slots, k[:, start:].to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slots, v[:, start:].to(cache["v"].dtype))
+    cache["pos"].index_copy_(1, slots, kept_pos.expand(b, -1))
+    return dense(p.wo, out), cache
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+class MLP(nn.Module):
+    """The reference's ``mlp_init`` tree: ``wg`` (SwiGLU only) and ``wu``
+    (d, d_ff), ``wd`` (d_ff, d)."""
+
+    def __init__(self, wu: Dense, wd: Dense, wg: Dense | None = None):
+        super().__init__()
+        self.wg, self.wu, self.wd = wg, wu, wd
+
+
+def mlp_init(gen: torch.Generator, cfg: ModelConfig, d_ff: int) -> MLP:
+    d, dt = cfg.d_model, cdtype(cfg)
+    wg = linear_init(gen, d, d_ff, dt) if cfg.act == "silu" else None
+    return MLP(linear_init(gen, d, d_ff, dt), linear_init(gen, d_ff, d, dt), wg)
+
+
+def mlp(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU for ``act="silu"``, squared ReLU, or GELU (``jax.nn.gelu``'s
+    default: the tanh approximation)."""
+    if cfg.act == "silu":
+        h = F.silu(dense(p.wg, x)) * dense(p.wu, x)
+    elif cfg.act == "squared_relu":
+        h = torch.square(F.relu(dense(p.wu, x)))
+    elif cfg.act == "gelu":
+        h = F.gelu(dense(p.wu, x), approximate="tanh")
+    else:
+        raise ValueError(cfg.act)
+    return dense(p.wd, h)

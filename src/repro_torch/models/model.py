@@ -54,10 +54,17 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor
 
 
 def loss_fn(cfg: ModelConfig, params: Decoder, batch: dict):
-    """(loss, {"loss", "ce"}); the SSM family has no router losses."""
-    logits, _ = forward_logits(cfg, params, batch)
+    """(loss, {"loss", "ce"}): the masked cross-entropy, plus the router
+    terms (and their metrics) where ``cfg.n_experts > 0``, as the reference
+    forms it."""
+    logits, m = forward_logits(cfg, params, batch)
     ce = cross_entropy(logits, batch["labels"], batch["mask"])
-    return ce, {"loss": ce, "ce": ce}
+    metrics = {"loss": ce, "ce": ce}
+    if cfg.n_experts:
+        metrics["loss"] = (ce + cfg.router_aux_weight * m["aux_loss"]
+                           + cfg.router_z_weight * m["z_loss"])
+        metrics.update(aux_loss=m["aux_loss"], z_loss=m["z_loss"])
+    return metrics["loss"], metrics
 
 
 def make_train_step(
@@ -116,13 +123,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *,
 
 
 def prefill(cfg: ModelConfig, params: Decoder, batch: dict, cache: list[dict]):
-    """Process the prompt; returns (last-position logits (B, 1, V), cache)."""
+    """Process the prompt; returns (last-position logits (B, 1, V), cache).
+    Attention layers fill ``cache``'s key/value tensors in place."""
     return T.decoder_prefill(params, cfg, batch["tokens"], cache)
 
 
 def decode_step(cfg: ModelConfig, params: Decoder, token: torch.Tensor,
-                cache: list[dict], position):
-    """One-token serve step: returns (logits (B, 1, V), new cache)."""
+                cache: list[dict], position: int):
+    """One-token serve step at absolute ``position`` (a host int): returns
+    (logits (B, 1, V), cache).  Attention layers write into ``cache`` in
+    place; keep a clone to reuse the cache from before the step."""
     return T.decoder_decode_step(params, cfg, token, cache, position)
 
 

@@ -57,10 +57,35 @@ def test_smoke_config_matches_reference_field_for_field():
     assert round(full.n_params() / 1e6, 1) == 368.2
 
 
-@pytest.mark.parametrize("name", [n for n in ARCH_NAMES if n != "mamba2-370m"])
+DENSE = ["smollm-135m", "internlm2-1.8b", "nemotron-4-15b", "qwen1.5-32b"]
+
+
+@pytest.mark.parametrize("name", [n for n in ARCH_NAMES if n not in DENSE + ["mamba2-370m"]])
 def test_unported_archs_refuse(name):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 9\.[2-5]"):
         get_config(name)
+
+
+@pytest.mark.parametrize("name", DENSE)
+def test_dense_archs_serve_through_the_launcher(name, capsys):
+    """Each dense config's smoke variant through ``--mode lm`` on the CPU: the
+    launcher's tokens are the model API's, its ``prefill_cache`` is a fresh
+    prefill's (the decode steps wrote their slots into the live cache only),
+    and ``--engine plan`` runs the same code."""
+    argv = ["--mode", "lm", "--device", "cpu", "--arch", name, "--variant", "smoke",
+            "--batch", "2", "--prompt_len", "11", "--gen", "3", "--seed", "5"]
+    res = serve.main(argv)
+    assert f"arch={name}-smoke params=" in capsys.readouterr().out
+    cfg, params, prompt = res["cfg"], res["params"], res["prompt"]
+    want, _ = tm.greedy_decode(cfg, params, prompt, 3, 15)
+    assert torch.equal(res["tokens"], want)
+    _, fresh = tm.prefill(cfg, params, {"tokens": prompt}, tm.init_cache(cfg, 2, 15, device=CPU))
+    for kept, new, live in zip(res["prefill_cache"], fresh, res["cache"]):
+        assert all(torch.equal(kept[key], new[key]) for key in ("k", "v", "pos"))
+        assert live["pos"][0, 11:14].tolist() == [11, 12, 13]
+        assert kept["pos"][0, 11:].tolist() == [-1] * 4
+    plain = serve.main(argv + ["--engine", "plan"])
+    assert torch.equal(plain["logits"], res["logits"])
 
 
 @pytest.mark.parametrize("fused", [False, True])
@@ -147,8 +172,8 @@ def test_greedy_decode_matches_reference_where_decided():
 
 
 def test_lm_launcher_on_cpu(capsys):
-    argv = ["--mode", "lm", "--device", "cpu", "--variant", "smoke", "--batch", "2",
-            "--prompt_len", "11", "--gen", "3", "--seed", "4"]
+    argv = ["--mode", "lm", "--device", "cpu", "--arch", "mamba2-370m", "--variant", "smoke",
+            "--batch", "2", "--prompt_len", "11", "--gen", "3", "--seed", "4"]
     res = serve.main(argv)
     printed = capsys.readouterr().out
     for line in ("arch=mamba2-370m-smoke params=0.3M", "prefill: ", "decode: 3 steps",

@@ -85,6 +85,8 @@ ENTRY_POINTS = {
     "make_fault_model": lambda: tr.make_fault_model(0.1),
     "parse_fault_spec": lambda: tr.faults.parse_fault_spec("drop=0.1"),
     "models.init_params": lambda: models.init_params(get_config("mamba2-370m", variant="smoke")),
+    "models.init_params dense": lambda: models.init_params(
+        get_config("smollm-135m", variant="smoke")),
     "serve.main lm": lambda: serve.main(["--mode", "lm", "--variant", "smoke", "--batch", "1",
                                          "--prompt_len", "4", "--gen", "1"]),
     "profile_lm.main": lambda: profile_lm.main([]),

@@ -3,7 +3,8 @@ the CPU with 2 gloo ranks, beside the reference's launcher on 2 forced host
 devices (``tests/test_system.py:114``'s run, on ``mamba2-370m``): the same
 line shapes, then ``done``; a ``--ckpt_dir`` restart resumes at its saved
 step with the replicas' parameters and optimizer state bitwise those of
-the uninterrupted run; every other arch raises."""
+the uninterrupted run; each dense config trains through the launcher at its
+smoke variant; the archs not yet ported raise."""
 
 import os
 import re
@@ -76,10 +77,24 @@ def test_ckpt_restart_resumes_bitwise(tmp_path, capfd):
         assert np.array_equal(a["leaf_00000"][0], a["leaf_00000"][1])  # allreduce
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_NAMES if a != "mamba2-370m"])
+DENSE = ["smollm-135m", "internlm2-1.8b", "nemotron-4-15b", "qwen1.5-32b"]
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCH_NAMES if a not in DENSE + ["mamba2-370m"]])
 def test_other_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 9\.[2-5]"):
         train.main(["--arch", arch, "--device", "cpu", "--world", "1"])
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_archs_train_through_the_launcher(arch, capfd):
+    capfd.readouterr()
+    out = train.main(["--arch", arch, "--variant", "smoke", "--steps", "2", "--batch", "4",
+                      "--seq", "16", "--log_every", "1", "--device", "cpu", "--world", "1"])
+    lines = capfd.readouterr().out.strip().splitlines()
+    assert lines[0].startswith(f"arch={arch}-smoke params=") and lines[-1] == "done"
+    assert len([ln for ln in lines if ln.startswith("step")]) == 2
+    assert np.isfinite(out["loss"]) and np.isfinite(out["ce"])
 
 
 def test_world_and_batch_are_checked():
