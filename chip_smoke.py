@@ -177,9 +177,28 @@ Phases, one line or more each; any failure raises and exits non-zero:
              --steps 3``, which must print ``done``; internlm2-1.8b served at
              full width likewise; nemotron-4-15b and qwen1.5-32b at the
              smoke variant in float32, decode against forward;
+  4c. main-moe the MoE family, which launches no kernel of the port either
+             (counters set to 0 before, read after, all 0): the LM launcher
+             with --arch qwen3-moe-30b-a3b at full width and depth (48
+             layers, 128 experts top-8, 30.53 B parameters, bf16, random
+             weights from seed 0), 4 x 512 prompt, 32 tokens, with prefill
+             s, decode tok/s and peak memory, the bf16 model's
+             decode-vs-forward difference printed; one full-width layer's
+             moe_apply under set_sync_debug_mode("error") (no host sync;
+             expert_load sums to tokens x k at drop-free capacity); at depth
+             2, float32 and capacity E / k (no drops): prefill 509 tokens and
+             3 decode steps against the forward (2e-4 / 3e-4, or the f64
+             witness rule); at depth 2 in bf16, 10 training steps after a
+             warm-up at batch 8 x 128 (falling loss, finite aux and z losses
+             per step, five leaves' AdamW update, the float32 router among
+             them), then the train launcher at the smoke variant (``done``);
+             llama4-scout-17b-a16e at full width and depth 4 served through
+             the model API (steps whose top-1 decode dropped a token at cap
+             1 counted) and its smoke variant's float32 decode check at
+             drop-free capacity;
   5. report  the kernels JSON line (``launches``: the sum over the field,
-             stream, churn, faults, daemon, prune, sharded, train, LM and
-             dense paths' runs, each path's count beside it), the card's
+             stream, churn, faults, daemon, prune, sharded, train, LM, dense
+             and MoE paths' runs, each path's count beside it), the card's
              name and power limit, and the final {"ok": true, ...} line.
 
 Tolerances are the reference's own.  Per color step, on identical inputs:
@@ -2669,34 +2688,35 @@ ADAMW_CHECK_LEAVES = ("embed", "layers.0.ssm.in_proj", "layers.47.ssm.out_proj",
                       "layers.23.ssm.A_log", "final_norm.scale")
 
 
-def check_adamw(torch, names, p0, grads, state0, state1, p1, lr: float,
-                leaves=ADAMW_CHECK_LEAVES, label: str = "main-train") -> dict:
-    """The step's AdamW update of ``leaves`` recomputed in float64 from the
-    gradients it was given and the moments before it: moments to 1e-5
-    relative, the new bf16 parameters to one bf16 ulp (plus 1e-6 of |p| +
-    |u|)."""
+def check_adamw(torch, norm: float, grads: dict, before: dict, after: dict, step: int,
+                lr: float, label: str = "main-train") -> dict:
+    """The step's AdamW update of the leaves in ``before`` ({name: (p, mu,
+    nu)} before the step; ``after`` the same after it) recomputed in float64
+    from their gradients ``grads`` ({name: g}), the float64 global norm of
+    every leaf's gradient and the moments before it: moments to 1e-5
+    relative, the new parameters to one ulp of their dtype (plus 1e-6 of |p|
+    + |u|)."""
     b1, b2, eps, wd = 0.9, 0.95, 1e-8, 0.1  # repro.optim.adamw's defaults
-    g64 = [g.double() for g in grads]
-    norm = sum(float((g * g).sum()) for g in g64) ** 0.5
     scale = min(1.0, 1.0 / (norm + 1e-9))
-    step = int(state1["step"])
     out = {}
-    for name in leaves:
-        i = names.index(name)
-        g = g64[i] * scale
-        mu = b1 * state0["mu"][i].double() + (1 - b1) * g
-        nu = b2 * state0["nu"][i].double() + (1 - b2) * g * g
+    for name, (p0, mu0, nu0) in before.items():
+        p1, mu1, nu1 = after[name]
+        g = grads[name].double() * scale
+        mu = b1 * mu0.double() + (1 - b1) * g
+        nu = b2 * nu0.double() + (1 - b2) * g * g
         u = -lr * ((mu / (1 - b1 ** step)) / ((nu / (1 - b2 ** step)).sqrt() + eps)
-                   + wd * p0[i].double())
-        want = p0[i].double() + u
-        # one bf16 ulp of the result, and the float32 formula's own rounding
-        # (its bias corrections are float32, ~2.4e-7 relative), which shows
-        # where p + u cancels
-        ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want.float()).exponent - 8)
-        allowed = ulp + 1e-6 * (p0[i].double().abs() + u.abs())
-        err_p = float(((p1[i].double() - want).abs() / allowed).max())
-        err_m = max(max_err(state1["mu"][i], mu) / max(float(mu.abs().max()), 1e-30),
-                    max_err(state1["nu"][i], nu) / max(float(nu.abs().max()), 1e-30))
+                   + wd * p0.double())
+        want = p0.double() + u
+        # one ulp of the result in the parameter's dtype (bf16, or a float32
+        # leaf such as the MoE router), and the float32 formula's own
+        # rounding (its bias corrections are float32, ~2.4e-7 relative),
+        # which shows where p + u cancels
+        ulp = torch.ldexp(torch.full_like(want, torch.finfo(p1.dtype).eps),
+                          torch.frexp(want.float()).exponent - 1)
+        allowed = ulp + 1e-6 * (p0.double().abs() + u.abs())
+        err_p = float(((p1.double() - want).abs() / allowed).max())
+        err_m = max(max_err(mu1, mu) / max(float(mu.abs().max()), 1e-30),
+                    max_err(nu1, nu) / max(float(nu.abs().max()), 1e-30))
         out[name] = dict(param_over_bound=err_p, moments_rel=err_m)
         check(err_p <= 1.0 and err_m <= 1e-5,
               f"{label}: AdamW update of {name} differs from the float64 formula: "
@@ -2709,8 +2729,10 @@ def train_and_time(torch, cfg, dp_mode: str, group, world: int, steps: int, leav
     """``cfg`` (random weights from seed 0) trained with the launcher's build
     (AdamW on its cosine schedule for ``steps`` steps) at batch 8 x 128: a
     warm-up step, then ``steps - 1`` timed steps, with one host read of the
-    loss per step; the AdamW update of ``leaves`` after the first step
-    against the float64 formula; the loss finite and falling.  Returns the
+    loss (and of an MoE model's router losses) per step; the AdamW update of
+    ``leaves`` after the first step against the float64 formula (only those
+    leaves are cloned, with their gradients, so a model of 2 B parameters
+    keeps its optimizer's room); the loss finite and falling.  Returns the
     readings and the last step's metrics."""
     from repro_torch import optim, tree
     from repro_torch.data import synthetic_lm_stream
@@ -2725,44 +2747,60 @@ def train_and_time(torch, cfg, dp_mode: str, group, world: int, steps: int, leav
     lr_1 = float(cosine_warmup(TRAIN_LR, min(100, steps // 10 + 1), steps)(1))
     opt, _ = train.build(cfg, dp_mode=dp_mode, lr=TRAIN_LR, steps=steps, group=group,
                          world=world)
+    params = init_params(cfg, LM_SEED, device="cuda")
+    names = [n for n, _ in params.named_parameters()]
+    idx = {name: names.index(name) for name in leaves}
     seen = {}
 
     def update(grads, state, params):
-        seen["grads"] = [gr.detach().clone() for gr in grads]
+        if "norm" not in seen:  # the first step's: the checked leaves and the global norm
+            seen["grads"] = {name: grads[i].detach().clone() for name, i in idx.items()}
+            seen["norm"] = torch.sqrt(sum((gr.double() ** 2).sum() for gr in grads))
         return opt.update(grads, state, params)
+
+    def picked(params, state, copy: bool) -> dict:
+        ps = tree.leaves(params)
+        return {name: tuple(t.clone() if copy else t
+                            for t in (ps[i], state["mu"][i], state["nu"][i]))
+                for name, i in idx.items()}
 
     rec = optim.Optimizer(init=opt.init, update=update)
     sched = [[0]] if dp_mode == "sop_gossip" else None  # train.build's, at a world of one
     step = make_train_step(cfg, rec, group=group, dp_mode=dp_mode, gossip_schedule=sched)
-    params = init_params(cfg, LM_SEED, device="cuda")
-    names = [n for n, _ in params.named_parameters()]
     state = opt.init(params)
-    p0 = _clones(tree.leaves(params))
-    s0 = {"mu": _clones(state["mu"]), "nu": _clones(state["nu"])}
+    before = picked(params, state, copy=True)
+    router = ("aux_loss", "z_loss") if cfg.n_experts else ()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params, state, m = step(params, state, batches[0], 0)  # the warm-up step
     losses = [float(m["loss"])]
+    router_losses = [[float(m[k]) for k in router]]
     warm_s = time.perf_counter() - t0
-    adamw = check_adamw(torch, names, p0, seen["grads"], s0, state, tree.leaves(params), lr_1,
-                        leaves, label)
-    del p0, s0
+    adamw = check_adamw(torch, float(seen["norm"]), seen["grads"], before,
+                        picked(params, state, copy=False), int(state["step"]), lr_1, label)
+    del before
+    seen["grads"].clear()
     times = []
     for i in range(1, steps):
         t0 = time.perf_counter()
         params, state, m = step(params, state, batches[i], i)
         losses.append(float(m["loss"]))  # one host read per step, as the launcher logs
+        router_losses.append([float(m[k]) for k in router])
         times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
     check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+    check(all(np.isfinite(router_losses).flat), f"{label}: non-finite router losses")
     check(losses[-1] < losses[0], f"{label}: the loss did not fall: {losses}")
     s_step = float(np.mean(times))
     readings = dict(leaves=len(names), s_per_step=s_step,
                     s_per_step_p50=float(np.median(times)), warmup_s=warm_s,
                     tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / s_step, peak_bytes=peak,
                     losses=losses, adamw=adamw)
-    del params, state, seen, batches
+    if router:
+        readings.update(aux_loss=[r[0] for r in router_losses],
+                        z_loss=[r[1] for r in router_losses])
+    del params, state, batches
     torch.cuda.empty_cache()
     return readings, m
 
@@ -2920,12 +2958,14 @@ DENSE_TRAIN_ARGV = ["--arch", "smollm-135m", "--variant", "full", "--steps", "3"
 DENSE_SMOKE = ("nemotron-4-15b", "qwen1.5-32b")  # on the card at the smoke variant
 
 
-def run_dense_serve(torch, mods, argv, arch: str) -> tuple[dict, dict, dict]:
-    """The LM launcher on a dense config at full width, launch counters set
-    to 0 before and read after: no kernel of the port is on this path."""
+def run_dense_serve(torch, mods, argv, arch: str, label: str = "main-dense",
+                    family: str = "dense") -> tuple[dict, dict, dict]:
+    """The LM launcher on a dense (or MoE) config at full width, launch
+    counters set to 0 before and read after: no kernel of the port is on
+    this path."""
     from repro_torch.launch import serve
 
-    print("main-dense: python -m repro_torch.launch.serve " + " ".join(argv))
+    print(f"{label}: python -m repro_torch.launch.serve " + " ".join(argv))
     for mod in mods.values():
         mod.launches = 0
     torch.cuda.synchronize()
@@ -2935,21 +2975,21 @@ def run_dense_serve(torch, mods, argv, arch: str) -> tuple[dict, dict, dict]:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in mods.items()}
-    print(f"main-dense: {arch} kernel launches " + json.dumps(launches))
+    print(f"{label}: {arch} kernel launches " + json.dumps(launches))
     check(all(v == 0 for v in launches.values()),
-          f"main-dense: {arch} launched a kernel of the port: {launches}")
+          f"{label}: {arch} launched a kernel of the port: {launches}")
     cfg = res["cfg"]
     b, gen = (int(argv[argv.index(flag) + 1]) for flag in ("--batch", "--gen"))
-    check(cfg.name == arch and cfg.family == "dense" and cfg.dtype == "bfloat16",
-          f"main-dense: the launcher served {cfg.name}, expected {arch} at full width")
+    check(cfg.name == arch and cfg.family == family and cfg.dtype == "bfloat16",
+          f"{label}: the launcher served {cfg.name}, expected {arch} at full width")
     check(res["logits"].shape == (b, 1, cfg.vocab_size)
-          and bool(torch.isfinite(res["logits"]).all()), f"main-dense: {arch} prefill logits")
+          and bool(torch.isfinite(res["logits"]).all()), f"{label}: {arch} prefill logits")
     check(res["tokens"].shape == (b, gen) and int(res["tokens"].min()) >= 0
-          and int(res["tokens"].max()) < cfg.vocab_size, f"main-dense: {arch} tokens")
+          and int(res["tokens"].max()) < cfg.vocab_size, f"{label}: {arch} tokens")
     peak = torch.cuda.max_memory_allocated()
     readings = dict(params=cfg.n_params(), prefill_s=res["prefill_s"], decode_s=res["decode_s"],
                     tok_s=res["tok_s"], peak_bytes=peak, launcher_s=wall)
-    print(f"main-dense: {arch} ({cfg.n_params() / 1e6:.1f}M params, {cfg.dtype}) prefill "
+    print(f"{label}: {arch} ({cfg.n_params() / 1e6:.1f}M params, {cfg.dtype}) prefill "
           f"{res['prefill_s']:.4f}s, decode {res['tok_s']:.1f} tok/s, peak memory "
           f"{peak / 2**30:.2f} GiB, launcher {wall:.1f}s")
     return launches, readings, res
@@ -2978,8 +3018,11 @@ def check_decode(torch, cfg, params, tokens, n_prefill: int, tol, label: str) ->
     """Decode against forward in float32 at ``tol`` (prefill, decode steps),
     abs + rel; should a side differ by more, both are held to the same
     weights in float64 and the decode route's error may be at most
-    LM_WITNESS_FACTOR times the forward's."""
+    LM_WITNESS_FACTOR times the forward's.  The witness keeps an MoE
+    router in float32, where the model routes in every dtype."""
     import copy
+
+    from repro_torch.models.layers import MoE
 
     got = decode_vs_forward(torch, cfg, params, tokens, n_prefill)
     readings, ok = {}, True
@@ -2990,6 +3033,9 @@ def check_decode(torch, cfg, params, tokens, n_prefill: int, tol, label: str) ->
         ok &= excess(a, b, t) <= t
     if not ok:
         p64 = copy.deepcopy(params).double()
+        for mod in p64.modules():
+            if isinstance(mod, MoE):
+                mod.router.data = mod.router.data.float()
         wit = decode_vs_forward(torch, dataclasses.replace(cfg, dtype="float64"), p64,
                                 tokens, n_prefill)
         for key, (a, b) in got.items():
@@ -3080,6 +3126,198 @@ def run_dense(torch, mods) -> tuple[dict, dict]:
     total = {name: launches[name] + train_launches[name] + intern_launches[name]
              for name in mods}
     return total, readings
+
+
+# ---------------------------------------------------------------------------
+# Phase 4c: MoE, qwen3-moe-30b-a3b at full width, llama4-scout behind it.
+# ---------------------------------------------------------------------------
+
+MOE_ARCH, SCOUT_ARCH = "qwen3-moe-30b-a3b", "llama4-scout-17b-a16e"
+MOE_ARGV = ["--mode", "lm", "--arch", MOE_ARCH, "--variant", "full", "--batch", "4",
+            "--prompt_len", "512", "--gen", "32"]
+MOE_DEPTH = 2  # layers of the float32 check and of training (full depth: 244 GB of moments)
+SCOUT_DEPTH = 4  # llama4-scout served at full width: 10.88 B parameters, 21.8 GB in bf16
+MOE_ADAMW_LEAVES = ("embed", "layers.0.moe.router", "layers.1.moe.wd", "layers.0.attn.wq.w",
+                    "final_norm.scale")
+MOE_TRAIN_ARGV = ["--arch", MOE_ARCH, "--variant", "smoke", "--steps", "3"]
+
+
+def drop_free(cfg):
+    """``cfg`` at capacity E / k: cap = g + 1, so no group drops a token
+    (the reference's device for decode against forward, tests/test_decode.py)."""
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def check_moe_no_sync(torch, cfg, layer, label: str) -> dict:
+    """One full-width ``moe_apply`` (B = 4 x 512, one layer's weights) under
+    ``set_sync_debug_mode("error")``: any host sync raises, as the
+    reference's jitted layer has none.  At drop-free capacity every token's
+    k assignments count: ``expert_load`` sums to B S k exactly.  The layer is
+    timed by events at drop-free capacity and at the config's own."""
+    from repro_torch.models.layers import _capacity, moe_apply
+
+    gen = torch.Generator(device="cuda").manual_seed(LM_SEED)
+    x = torch.randn((4, 512, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    free = drop_free(cfg)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, m = moe_apply(layer, free, x)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        tokens = x.shape[0] * x.shape[1]
+        load = float(m["expert_load"].sum())
+        check(y.shape == x.shape and bool(torch.isfinite(y).all()), f"{label}: moe_apply output")
+        check(load == tokens * cfg.top_k,
+              f"{label}: expert_load sums to {load} at drop-free capacity, expected "
+              f"{tokens} x {cfg.top_k}")
+        out = dict(tokens=tokens, expert_load_sum=load, cap_free=_capacity(free, 512),
+                   cap=_capacity(cfg, 512),
+                   ms_free=cuda_ms(lambda: moe_apply(layer, free, x), reps=5, warmup=1),
+                   ms=cuda_ms(lambda: moe_apply(layer, cfg, x), reps=5, warmup=1))
+    print(f"{label}: moe_apply at full width (B = 4 x 512, E = {cfg.n_experts}, k = "
+          f"{cfg.top_k}) under set_sync_debug_mode('error'): no host sync; expert_load sums "
+          f"to {load:.0f} = {tokens} x {cfg.top_k}; {out['ms_free']:.3f} ms at cap "
+          f"{out['cap_free']}, {out['ms']:.3f} ms at cap {out['cap']}")
+    return out
+
+
+def serve_scout(torch, label: str) -> dict:
+    """llama4-scout at full width, depth cut to SCOUT_DEPTH, through the model
+    API at the LM geometry (B = 4 x 512, 32 greedy tokens after a warm-up
+    prefill and step).  At decode one group of B = 4 tokens gives cap = 1
+    for top-1 routing, so tokens that pick the same expert drop (only the
+    shared expert is left for them): each MoE layer's ``expert_load`` is
+    kept during the timed steps and a step counts as dropping where some
+    expert got more than cap."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_cache, init_params, layers, prefill
+
+    cfg = dataclasses.replace(get_config(SCOUT_ARCH), n_layers=SCOUT_DEPTH)
+    b, s0, gen = 4, 512, 32
+    params = init_params(cfg, LM_SEED, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(LM_SEED)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s0), generator=g, device="cuda")
+    loads = []
+    inner = layers.moe_apply
+
+    def recording(p, c, x):
+        y, m = inner(p, c, x)
+        loads.append(m["expert_load"])
+        return y, m
+
+    def fresh_cache():
+        return init_cache(cfg, b, s0 + gen + 1, device="cuda")
+
+    with torch.inference_mode():
+        logits, cache = prefill(cfg, params, {"tokens": prompt}, fresh_cache())
+        decode_step(cfg, params, torch.argmax(logits[:, -1:], dim=-1), cache, s0)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, cache = prefill(cfg, params, {"tokens": prompt}, fresh_cache())
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        out = []
+        layers.moe_apply = recording
+        try:
+            t0 = time.perf_counter()
+            for i in range(gen):
+                step, cache = decode_step(cfg, params, tok, cache, s0 + i)
+                tok = torch.argmax(step[:, -1:], dim=-1)
+                out.append(tok)
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+        finally:
+            layers.moe_apply = inner
+    peak = torch.cuda.max_memory_allocated()
+    tokens = torch.cat(out, dim=1)
+    check(bool(torch.isfinite(logits).all()) and bool(torch.isfinite(step).all()),
+          f"{label}: non-finite logits")
+    check(int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size, f"{label}: tokens")
+    cap = layers._capacity(cfg, min(cfg.moe_group_size, b))
+    over = torch.stack(loads).reshape(gen, cfg.n_layers, cfg.n_experts) - cap
+    dropped = torch.clamp(over, min=0).sum(dim=(1, 2))  # assignments dropped per step
+    readings = dict(params=cfg.n_params(), layers=cfg.n_layers, prefill_s=prefill_s,
+                    decode_s=decode_s, tok_s=b * gen / decode_s, peak_bytes=peak,
+                    decode_cap=cap, steps_with_drops=int((dropped > 0).sum()),
+                    dropped_assignments=int(dropped.sum()))
+    print(f"{label}: {cfg.name} at full width, {cfg.n_layers} of 48 layers "
+          f"({cfg.n_params() / 1e9:.2f} B params, {cfg.dtype}), B = {b} x {s0}: prefill "
+          f"{prefill_s:.4f}s, decode {readings['tok_s']:.1f} tok/s, peak memory "
+          f"{peak / 2**30:.2f} GiB; decode cap {cap}: {readings['steps_with_drops']} of {gen} "
+          f"steps dropped a token ({readings['dropped_assignments']} assignments over "
+          f"{gen} x {cfg.n_layers} layers)")
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return readings
+
+
+def run_moe(torch, mods) -> tuple[dict, dict]:
+    """Phase 4c: qwen3-moe-30b-a3b served at full width and full depth
+    through the launcher (the bf16 model's decode-vs-forward difference at
+    its own capacity printed, one layer's ``moe_apply`` under the "error"
+    sync mode); float32 decode vs forward at full width and depth 2 at
+    drop-free capacity; training at full width and depth 2; the train
+    launcher at the smoke variant; llama4-scout served at full width and
+    depth 4, and its smoke variant's float32 decode check.  Launch counters
+    are set to 0 before and read after: every one stays 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    launches, readings, res = run_dense_serve(torch, mods, MOE_ARGV, MOE_ARCH, "main-moe", "moe")
+    for mod in mods.values():
+        mod.launches = 0
+    cfg, params, prompt = res["cfg"], res["params"], res["prompt"]
+    a, b = (t.float() for t in decode_vs_forward(torch, cfg, params, prompt,
+                                                  DENSE_PREFILL)["decode"])
+    readings["bf16_decode_vs_forward"] = max_err(a, b)
+    print(f"main-moe: bf16 decode vs forward at capacity {cfg.capacity_factor} (not gated: "
+          f"prefill groups of 512 and decode groups of 4 drop different tokens): max |d| "
+          f"{readings['bf16_decode_vs_forward']:.4g} at |logits| up to {float(b.abs().max()):.4g}")
+    readings["no_sync"] = check_moe_no_sync(torch, cfg, params.layers[0].moe, "main-moe")
+    del res, params, a, b
+    torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_DEPTH)
+    cfg32 = drop_free(dataclasses.replace(cut, dtype="float32"))
+    readings["f32"] = check_decode(torch, cfg32, init_params(cfg32, LM_SEED, device="cuda"),
+                                   prompt, DENSE_PREFILL, DENSE_TOL,
+                                   f"main-moe float32 ({MOE_DEPTH} layers, capacity "
+                                   f"{cfg32.capacity_factor})")
+    torch.cuda.empty_cache()
+
+    r, _ = train_and_time(torch, cut, "allreduce", None, 1, DENSE_TRAIN_STEPS + 1,
+                          MOE_ADAMW_LEAVES, "main-moe train")
+    losses = r["losses"]
+    print(f"main-moe: train {cut.name} at full width, {MOE_DEPTH} layers "
+          f"({cut.n_params() / 1e9:.2f} B params, {r['leaves']} leaves) world=1 batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: {r['s_per_step']:.4f} s/step "
+          f"({r['tokens_per_s']:.0f} tokens/s) over {DENSE_TRAIN_STEPS} steps after a "
+          f"{r['warmup_s']:.2f} s warm-up step; peak memory {r['peak_bytes'] / 2**30:.2f} GiB; "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    for key in ("losses", "aux_loss", "z_loss"):
+        print(f"main-moe: train {key} per step " + json.dumps([round(x, 4) for x in r[key]]))
+    print("main-moe: AdamW after one step vs the float64 formula: " + json.dumps(r["adamw"]))
+    readings["train"] = r
+    readings["train"]["launcher"] = run_train_launcher(torch, MOE_TRAIN_ARGV, "main-moe")
+
+    readings["scout"] = serve_scout(torch, "main-moe")
+    smoke = drop_free(get_config(SCOUT_ARCH, variant="smoke"))
+    gen = torch.Generator(device="cuda").manual_seed(LM_SEED)
+    toks = torch.randint(0, smoke.vocab_size, (2, 12), generator=gen, device="cuda")
+    readings["scout_smoke"] = check_decode(torch, smoke, init_params(smoke, LM_SEED, device="cuda"),
+                                           toks, 9, DENSE_TOL, f"main-moe {smoke.name} float32")
+    torch.cuda.synchronize()
+    after = {name: mod.launches for name, mod in mods.items()}
+    print("main-moe: kernel launches after the serve (checks, training, llama4-scout) "
+          + json.dumps(after))
+    check(all(v == 0 for v in after.values()),
+          f"main-moe: a kernel of the port was launched: {after}")
+    return {name: launches[name] + after[name] for name in mods}, readings
 
 
 # ---------------------------------------------------------------------------
@@ -3284,11 +3522,18 @@ def run() -> int:
     dense_launches, dense_readings = run_dense(torch, mods)
     dense_readings["phase_s"] = time.perf_counter() - t0
     print("main-dense: " + json.dumps(dense_readings))
+    torch.cuda.empty_cache()
+
+    # 4c. MoE: qwen3-moe-30b-a3b at full width, then llama4-scout ------------
+    t0 = time.perf_counter()
+    moe_launches, moe_readings = run_moe(torch, mods)
+    moe_readings["phase_s"] = time.perf_counter() - t0
+    print("main-moe: " + json.dumps(moe_readings))
     # each path's launches, counted from 0 around its run (rbf_gram: on none)
     by_path = {"field": launches, "stream": stream_launches, "churn": churn_launches,
                "faults": fault_launches, "daemon": daemon_launches, "prune": prune_launches,
                "sharded": sharded_launches, "train": train_launches, "lm": lm_launches,
-               "dense": dense_launches}
+               "dense": dense_launches, "moe": moe_launches}
 
     # 5. report --------------------------------------------------------------
     meta = {

@@ -6,9 +6,10 @@ Usage:  cfg = get_config("smollm-135m")
 
 The names are the reference's (``repro.configs.ARCH_NAMES``).  Ported: the
 dense decoders ``smollm-135m``, ``internlm2-1.8b``, ``nemotron-4-15b`` and
-``qwen1.5-32b``, and the SSM ``mamba2-370m``.  The other five need MoE,
-hybrid, VLM or encoder-decoder layers (ROADMAP Queue 1 items 9.2-9.5), and
-``get_config`` refuses them, naming their item.
+``qwen1.5-32b``, the MoE decoders ``qwen3-moe-30b-a3b`` and
+``llama4-scout-17b-a16e``, and the SSM ``mamba2-370m``.  The other three
+need hybrid, VLM or encoder-decoder layers (ROADMAP Queue 1 items 9.3-9.5),
+and ``get_config`` refuses them, naming their item.
 """
 
 from __future__ import annotations
@@ -18,9 +19,11 @@ import dataclasses
 from ..models.config import ModelConfig, reduced
 from . import (
     internlm2_1_8b,
+    llama4_scout_17b_a16e,
     mamba2_370m,
     nemotron_4_15b,
     qwen1_5_32b,
+    qwen3_moe_30b_a3b,
     sensor_field,
     smollm_135m,
 )
@@ -44,12 +47,12 @@ _MODULES = {
     "mamba2-370m": mamba2_370m,
     "nemotron-4-15b": nemotron_4_15b,
     "qwen1.5-32b": qwen1_5_32b,
+    "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
+    "llama4-scout-17b-a16e": llama4_scout_17b_a16e,
 }
 
 # the ROADMAP Queue 1 item that ports each remaining architecture
 _UNPORTED = {
-    "llama4-scout-17b-a16e": ("MoE layers", "9.2"),
-    "qwen3-moe-30b-a3b": ("MoE layers", "9.2"),
     "jamba-1.5-large-398b": ("the attention/Mamba2/MoE hybrid stack", "9.3"),
     "qwen2-vl-2b": ("VLM patches and M-RoPE", "9.4"),
     "whisper-tiny": ("the encoder-decoder stack with LayerNorm", "9.5"),

@@ -6,8 +6,9 @@ leaves, read out as numpy arrays, become the port's dataclasses on
 prefix (``"topology.positions"``, ``"layout.slot_owner"``).  Static fields
 (``n_stream``, ``topology.n_colors``, ``grid_shape``, ``k``, ...) are
 plain Python values in the same dict.  The reference's LM parameter tree
-becomes the port's ``Decoder`` (``lm_params_from_numpy``), one attention or
-MLP tree an ``Attention`` or ``MLP``.  Dtypes are kept as given.
+becomes the port's ``Decoder`` (``lm_params_from_numpy``), one attention,
+MLP or MoE tree an ``Attention``, ``MLP`` or ``MoE``.  Dtypes are kept as
+given.
 """
 
 from __future__ import annotations
@@ -133,6 +134,19 @@ def _sub(d: dict, prefix: str) -> dict:
     return {k[len(prefix):]: v for k, v in d.items() if k.startswith(prefix)}
 
 
+def moe_from_numpy(tree: dict, *, device: str | torch.device = "cuda") -> L.MoE:
+    """One ``MoE`` on ``device`` from the reference's ``moe_init`` tree: the
+    bare arrays ``router`` (float32), ``wg`` (SwiGLU only), ``wu`` and
+    ``wd``, and ``shared.{wg,wu,wd}.w`` where there is a shared expert."""
+    dev = _device.resolve(device)
+    flat = _flatten(tree)
+    shared = _sub(flat, "shared.")
+    return L.MoE(_tensor(flat["router"], dev), _tensor(flat["wu"], dev),
+                 _tensor(flat["wd"], dev),
+                 _tensor(flat["wg"], dev) if "wg" in flat else None,
+                 mlp_from_numpy(shared, device=dev) if shared else None)
+
+
 def lm_params_from_numpy(
     tree: dict, cfg: ModelConfig, *, device: str | torch.device = "cuda"
 ) -> T.Decoder:
@@ -144,7 +158,8 @@ def lm_params_from_numpy(
     ``blocks.layer0.*`` with a leading ``n_blocks`` axis, one block per
     layer: ``norm1.scale`` and ``ssm.*`` for a mixer; ``norm1.scale``,
     ``attn.{wq,wk,wv,wo}.{w,b}``, ``norm2.scale`` and ``mlp.{wg,wu,wd}.w``
-    for an attention layer.
+    for an attention layer, or, where ``cfg.layer_is_moe(i)``,
+    ``moe.{router,wg,wu,wd}`` and ``moe.shared.{wg,wu,wd}.w``.
     """
     dev = _device.resolve(device)
     T.check_supported(cfg)
@@ -161,9 +176,10 @@ def lm_params_from_numpy(
             layers.append(T.MixerLayer(norm1, ssm_mixer_from_numpy(_sub(one, "ssm."),
                                                                    device=dev)))
         else:
+            ffn = (moe_from_numpy(_sub(one, "moe."), device=dev) if cfg.layer_is_moe(i)
+                   else mlp_from_numpy(_sub(one, "mlp."), device=dev))
             layers.append(T.AttnLayer(norm1, attention_from_numpy(_sub(one, "attn."), device=dev),
-                                      L.RMSNorm(_tensor(one["norm2.scale"], dev)),
-                                      mlp_from_numpy(_sub(one, "mlp."), device=dev)))
+                                      L.RMSNorm(_tensor(one["norm2.scale"], dev)), ffn))
     head = flat.get("lm_head")
     return T.Decoder(_tensor(flat["embed"], dev),
                      L.RMSNorm(_tensor(flat["final_norm.scale"], dev)), layers,

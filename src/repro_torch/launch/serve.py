@@ -22,13 +22,13 @@ serves kNN with the knn_fuse kernel; ``plan`` and ``dense`` run the plain
 PyTorch engines.
 
 ``--mode lm`` serves ``--arch`` (default ``smollm-135m``, as in the
-reference; the dense decoders and ``mamba2-370m`` are ported) from random
+reference; the dense and MoE decoders and ``mamba2-370m`` are ported) from random
 weights made from ``--seed``: one prompt of ``--batch`` x ``--prompt_len``
 random tokens is prefilled, then ``--gen`` tokens are decoded greedily
 against the KV (attention) or SSM cache.  ``--engine cuda`` runs the
 prefill's SSD intra-chunk term in the ssd_intra kernel (``ssd_fused=True``);
-``plan`` runs the plain ``ssd_chunked``.  A dense decoder has no SSM layer,
-so both engines run the same code for it.
+``plan`` runs the plain ``ssd_chunked``.  A dense or MoE decoder has no SSM
+layer, so both engines run the same code for it.
 
 ``--stream A`` absorbs A arrivals after training, as the reference does:
 the topology gets ``ceil(A / n) + 4`` lanes of headroom, the arrivals are
@@ -86,6 +86,8 @@ Examples (on the GPU):
     --sensors 40 --fields 3 --ticks 20 --ckpt-every 1 --snapshot-dir /tmp/snap
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
     --arch mamba2-370m --variant full --batch 4 --prompt_len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
+    --arch qwen3-moe-30b-a3b --variant full --batch 4 --prompt_len 512 --gen 32
 """
 
 from __future__ import annotations

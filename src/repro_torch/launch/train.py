@@ -20,8 +20,10 @@ Metrics are averaged over the group.  ``--ckpt_dir`` saves every
 parameters' and optimizer state's leaves stacked on a leading replica axis;
 a restart restores each rank's replica and resumes at the saved step.
 ``--arch`` defaults to ``smollm-135m``, as in the reference; the dense
-decoders and ``mamba2-370m`` are ported, and the other archs raise
-``NotImplementedError``.
+and MoE decoders and ``mamba2-370m`` are ported, and the other archs raise
+``NotImplementedError``.  An MoE model's loss holds the router terms
+(``models.loss_fn``); the returned metrics carry ``aux_loss`` and
+``z_loss``.
 
 Example (CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\

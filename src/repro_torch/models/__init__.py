@@ -1,5 +1,6 @@
-"""The port's model stack: dense decoders (GQA attention + MLP) and Mamba2
-(SSM family), serving and training."""
+"""The port's model stack: dense decoders (GQA attention + MLP), MoE
+decoders (GQA attention + GShard top-k experts) and Mamba2 (SSM family),
+serving and training."""
 
 from .config import ModelConfig, reduced
 from .model import (

@@ -1,18 +1,20 @@
 """Shared layers of the port's model stack: init helpers, dense, norms, RoPE,
-GQA attention with its ring-buffer KV cache, and the MLPs.
+GQA attention with its ring-buffer KV cache, the MLPs and the MoE layer.
 
-The subset of the reference's ``repro.models.layers`` that the SSM and
-dense families use (M-RoPE, LayerNorm and MoE are not ported yet).
+The subset of the reference's ``repro.models.layers`` that the SSM, dense
+and MoE families use (M-RoPE and LayerNorm are not ported yet).
 Conventions:
   * weights keep the reference's layouts (a dense weight is (d_in, d_out),
     applied as ``x @ w``), so the reference's parameters carry across as
     they are (``repro_torch.convert.lm_params_from_numpy``);
   * every init helper draws from an explicit ``torch.Generator``;
   * activations follow ``cfg.dtype``; norm, RoPE-angle, softmax and SSM
-    math run in float32, or in float64 for a float64 model (``wide``).
+    math run in float32, or in float64 for a float64 model (``wide``); the
+    MoE router is float32 in every model dtype, as in the reference.
 
 Shapes: B batch, S sequence, d model dim, H query heads, K kv heads, hd
-head dim.
+head dim; for MoE, E experts, k of them per token, f expert width, G
+groups of g tokens, C slots per expert and group (the capacity).
 """
 
 from __future__ import annotations
@@ -305,3 +307,126 @@ def mlp(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         raise ValueError(cfg.act)
     return dense(p.wd, h)
+
+
+# ---------------------------------------------------------------------------
+# MoE: GShard-style grouped top-k dispatch with capacity
+# ---------------------------------------------------------------------------
+
+
+class MoE(nn.Module):
+    """The reference's ``moe_init`` tree: ``router`` (d, E), float32 whatever
+    the model's dtype; ``wg`` (SwiGLU only) and ``wu`` (E, d, f) and ``wd``
+    (E, f, d) in the model's dtype; ``shared``, an ``MLP`` of width f x
+    ``n_shared_experts``, where the config has one."""
+
+    def __init__(self, router: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
+                 wg: torch.Tensor | None = None, shared: MLP | None = None):
+        super().__init__()
+        self.router = param(router)
+        self.register_parameter("wg", None if wg is None else param(wg))
+        self.wu, self.wd = param(wu), param(wd)
+        self.shared = shared
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig) -> MoE:
+    d, e, dt = cfg.d_model, cfg.n_experts, cdtype(cfg)
+    f = cfg.moe_d_ff or cfg.d_ff
+    router = _normal(gen, (d, e), d**-0.5, torch.float32)
+    wg = _normal(gen, (e, d, f), d**-0.5, dt) if cfg.act == "silu" else None
+    wu = _normal(gen, (e, d, f), d**-0.5, dt)
+    wd = _normal(gen, (e, f, d), f**-0.5, dt)
+    shared = mlp_init(gen, cfg, f * cfg.n_shared_experts) if cfg.n_shared_experts else None
+    return MoE(router, wu, wd, wg, shared)
+
+
+def _capacity(cfg: ModelConfig, group: int) -> int:
+    c = int(group * cfg.top_k * cfg.capacity_factor / cfg.n_experts) + 1
+    return max(c, cfg.top_k)
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """float32 one-hot of ``idx`` over ``n`` classes, a zero row where ``idx``
+    lies outside ``[0, n)`` (``jax.nn.one_hot``'s rule; ``F.one_hot`` raises)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(torch.float32)
+
+
+def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor
+              ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """x: (B, S, d) -> (y, {"aux_loss", "z_loss", "expert_load"}), the
+    reference's dense one-hot dispatch with static shapes and no host read.
+
+    The B S tokens are cut into groups of ``moe_group_size`` (the tail group
+    zero-padded; padded tokens route and count, as in the reference).  Each
+    token's k experts come from the float32 router's softmax, highest first
+    and ties to the lower expert (``jax.lax.top_k``'s order: a stable
+    descending sort, where ``torch.topk`` picks other experts among equal
+    probabilities), with weights renormalised to sum to 1.  Slot j of every
+    token takes capacity before slot j + 1, in token order; an assignment
+    past C is dropped.  ``dispatch`` is one-hot in the model's dtype,
+    ``combine`` float32 and cast to it before the last product; the shared
+    expert is added after.
+    """
+    b, s, d = x.shape
+    e, k, dt = cfg.n_experts, cfg.top_k, cdtype(cfg)
+    tokens = x.reshape(b * s, d)
+    n = tokens.shape[0]
+    g = min(cfg.moe_group_size, n)
+    pad = (-n) % g
+    if pad:
+        tokens = F.pad(tokens, (0, 0, 0, pad))
+    ng = tokens.shape[0] // g
+    xt = tokens.reshape(ng, g, d)
+    cap = _capacity(cfg, g)
+
+    logits = xt.to(torch.float32) @ p.router  # (G, g, E)
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[..., :k], topi[..., :k]
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+
+    counts = torch.zeros((ng, e), dtype=torch.float32, device=x.device)
+    dispatch = torch.zeros((ng, g, e, cap), dtype=dt, device=x.device)
+    combine = torch.zeros((ng, g, e, cap), dtype=torch.float32, device=x.device)
+    for j in range(k):
+        oh = _one_hot(topi[..., j], e)  # (G, g, E)
+        pos_in = torch.cumsum(oh, dim=1) - oh + counts[:, None, :]
+        pos = torch.einsum("nge,nge->ng", pos_in, oh).to(torch.int32)
+        keep = (pos < cap).to(torch.float32)
+        slot = _one_hot(pos, cap) * keep[..., None]  # (G, g, C)
+        dj = oh[..., None] * slot[:, :, None, :]  # (G, g, E, C)
+        dispatch = dispatch + dj.to(dt)
+        combine = combine + dj * topv[..., j][..., None, None]
+        counts = counts + oh.sum(dim=1)
+
+    expert_in = torch.einsum("ngec,ngd->necd", dispatch, xt)  # (G, E, C, d)
+    if cfg.act == "silu":
+        h = F.silu(torch.einsum("necd,edf->necf", expert_in, p.wg))
+        h = h * torch.einsum("necd,edf->necf", expert_in, p.wu)
+    elif cfg.act == "squared_relu":
+        h = torch.square(F.relu(torch.einsum("necd,edf->necf", expert_in, p.wu)))
+    else:
+        h = F.gelu(torch.einsum("necd,edf->necf", expert_in, p.wu), approximate="tanh")
+    expert_out = torch.einsum("necf,efd->necd", h, p.wd)
+    y = torch.einsum("ngec,necd->ngd", combine.to(dt), expert_out)
+    y = y.reshape(-1, d)[:n].reshape(b, s, d)
+
+    if cfg.n_shared_experts:
+        y = y + mlp(p.shared, cfg, x)
+
+    # load-balance aux (Switch/GShard): E * sum_e f_e * P_e
+    me = probs.mean(dim=(0, 1))  # (E,)
+    top1 = _one_hot(topi[..., 0], e).mean(dim=(0, 1))
+    aux = e * torch.sum(top1 * me)
+    z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+    return y, {"aux_loss": aux, "z_loss": z, "expert_load": counts.sum(0)}
+
+
+def ffn_apply(p: MLP | MoE, cfg: ModelConfig, x: torch.Tensor, *, is_moe: bool
+              ) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None]:
+    """The MoE layer with its metrics, or the MLP with None: the reference
+    gives a dense layer zero metrics, which add nothing to a sum over layers
+    (``transformer.decoder_forward`` skips them instead)."""
+    if is_moe:
+        return moe_apply(p, cfg, x)
+    return mlp(p, cfg, x), None

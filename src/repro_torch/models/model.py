@@ -10,7 +10,9 @@
     tokens, cache   = greedy_decode(cfg, params, prompt, n_steps, max_seq)
 
 ``batch`` is a dict holding ``tokens`` (B, S), and ``labels`` and ``mask``
-(B, S) for the loss.  The train step optionally applies the paper's
+(B, S) for the loss.  For an MoE model the loss adds the router's
+load-balance and z terms, summed over its MoE layers, so the train step
+trains the router.  The train step optionally applies the paper's
 SOP-consensus gossip over a ``torch.distributed`` group instead of
 all-reduce gradient averaging.  Parameters are created frozen (serving
 needs no graph); the train step turns their gradients on for its own

@@ -1,16 +1,19 @@
-"""Decoder-only stack of the port, dense and SSM families: embed -> n_layers
-x layer -> final norm -> head (tied: embed^T, or the untied ``lm_head``).
+"""Decoder-only stack of the port, dense, MoE and SSM families: embed ->
+n_layers x layer -> final norm -> head (tied: embed^T, or the untied
+``lm_head``).
 
 A layer of kind ``"a"`` (``AttnLayer``) is norm1 -> attention -> residual,
-then norm2 -> MLP -> residual; a layer of kind ``"m"`` (``MixerLayer``) is
-norm1 -> Mamba2 mixer -> residual.  The reference's
+then norm2 -> FFN -> residual, the FFN an MLP or, where
+``cfg.layer_is_moe(i)``, the MoE layer; a layer of kind ``"m"``
+(``MixerLayer``) is norm1 -> Mamba2 mixer -> residual.  The reference's
 ``repro.models.transformer`` scans stacked super-blocks with ``lax.scan``;
 here each layer is an ``nn.Module`` in an ``nn.ModuleList`` and the stack
 is a Python loop.  The cache is a list with one dict per layer:
-``{"k", "v", "pos"}`` for attention, ``{"state", "conv"}`` for SSM.  MoE
-layers, ``"a"``/``"m"`` hybrids, VLM patches, M-RoPE, encoder-decoder
-stacks and LayerNorm are not ported yet (ROADMAP Queue 1 items 9.2-9.5)
-and raise.
+``{"k", "v", "pos"}`` for attention, ``{"state", "conv"}`` for SSM.  The
+forward sums the MoE layers' router metrics over the stack; prefill and
+decode discard them, as the reference does.  ``"a"``/``"m"`` hybrids, VLM
+patches, M-RoPE, encoder-decoder stacks and LayerNorm are not ported yet
+(ROADMAP Queue 1 items 9.3-9.5) and raise.
 """
 
 from __future__ import annotations
@@ -28,13 +31,11 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense decoder or a pure-SSM decoder."""
+    """Raise unless ``cfg`` is a dense or MoE decoder or a pure-SSM decoder."""
     if cfg.is_encoder_decoder:
         raise _not_ported("the encoder-decoder stack", "9.5")
     if len(set(cfg.pattern)) > 1:
         raise _not_ported("'a'/'m' hybrid stacks", "9.3")
-    if cfg.n_experts:
-        raise _not_ported("MoE layers", "9.2")
     if cfg.n_patches or cfg.rope_mode == "mrope":
         raise _not_ported("VLM patches and M-RoPE", "9.4")
     if cfg.norm != "rmsnorm":
@@ -53,11 +54,14 @@ class MixerLayer(nn.Module):
 
 
 class AttnLayer(nn.Module):
-    """norm1 -> attention and norm2 -> MLP, each added to the residual stream."""
+    """norm1 -> attention and norm2 -> FFN, each added to the residual stream.
+    The FFN is held under the reference's key: ``mlp``, or ``moe``."""
 
-    def __init__(self, norm1: L.RMSNorm, attn: L.Attention, norm2: L.RMSNorm, mlp: L.MLP):
+    def __init__(self, norm1: L.RMSNorm, attn: L.Attention, norm2: L.RMSNorm,
+                 ffn: L.MLP | L.MoE):
         super().__init__()
-        self.norm1, self.attn, self.norm2, self.mlp = norm1, attn, norm2, mlp
+        self.norm1, self.attn, self.norm2 = norm1, attn, norm2
+        setattr(self, "moe" if isinstance(ffn, L.MoE) else "mlp", ffn)
 
 
 class Decoder(nn.Module):
@@ -74,8 +78,8 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, i: int) -> MixerLayer | 
     dev = gen.device
     if cfg.layer_kind(i) == "m":
         return MixerLayer(L.norm_init(cfg, dev), S.ssm_init(gen, cfg))
-    return AttnLayer(L.norm_init(cfg, dev), L.attn_init(gen, cfg), L.norm_init(cfg, dev),
-                     L.mlp_init(gen, cfg, cfg.d_ff))
+    ffn = L.moe_init(gen, cfg) if cfg.layer_is_moe(i) else L.mlp_init(gen, cfg, cfg.d_ff)
+    return AttnLayer(L.norm_init(cfg, dev), L.attn_init(gen, cfg), L.norm_init(cfg, dev), ffn)
 
 
 def init_decoder_params(gen: torch.Generator, cfg: ModelConfig) -> Decoder:
@@ -115,8 +119,12 @@ def _head(params: Decoder, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return L.apply_norm(params.final_norm, x) @ head
 
 
-def _ffn(layer: AttnLayer, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    return x + L.mlp(layer.mlp, cfg, L.apply_norm(layer.norm2, x))
+def _ffn(layer: AttnLayer, cfg: ModelConfig, i: int, x: torch.Tensor):
+    """x + FFN(norm2(x)), and the MoE layer's metrics (None for an MLP)."""
+    is_moe = cfg.layer_is_moe(i)
+    h, metrics = L.ffn_apply(layer.moe if is_moe else layer.mlp, cfg,
+                             L.apply_norm(layer.norm2, x), is_moe=is_moe)
+    return x + h, metrics
 
 
 def _zero_metrics(cfg: ModelConfig, device) -> dict[str, torch.Tensor]:
@@ -128,19 +136,23 @@ def _zero_metrics(cfg: ModelConfig, device) -> dict[str, torch.Tensor]:
 def decoder_forward(
     params: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *, patch_embeds=None
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """Returns (logits (B, S, V), MoE metrics, all zero: no MoE layer is ported)."""
+    """Returns (logits (B, S, V), the MoE metrics summed over layers: zero
+    for a stack without MoE layers)."""
     check_supported(cfg)
     x = embed_inputs(params, cfg, tokens, patch_embeds)
     b, s, _ = x.shape
     angles = _angles(cfg, b, s, x.device)
+    acc = _zero_metrics(cfg, x.device)
     for i, layer in enumerate(params.layers):
         if cfg.layer_kind(i) == "m":
             x = x + S.ssm_forward(layer.ssm, cfg, L.apply_norm(layer.norm1, x))
             continue
         h = L.attn_forward(layer.attn, cfg, L.apply_norm(layer.norm1, x), angles,
                            window=cfg.sliding_window)
-        x = _ffn(layer, cfg, x + h)
-    return _head(params, cfg, x), _zero_metrics(cfg, x.device)
+        x, m = _ffn(layer, cfg, i, x + h)
+        if m is not None:
+            acc = {key: acc[key] + m[key] for key in acc}
+    return _head(params, cfg, x), acc
 
 
 def attn_cache_len(cfg: ModelConfig, max_seq: int) -> int:
@@ -181,7 +193,7 @@ def decoder_prefill(
             continue
         h, c = L.prefill_into_cache(layer.attn, cfg, h, angles, c, window=cfg.sliding_window)
         new_cache.append(c)
-        x = _ffn(layer, cfg, x + h)
+        x, _ = _ffn(layer, cfg, i, x + h)
     return _head(params, cfg, x[:, -1:]), new_cache
 
 
@@ -203,5 +215,5 @@ def decoder_decode_step(
             continue
         h, c = L.attn_decode(layer.attn, cfg, h, c, position, window=cfg.sliding_window)
         new_cache.append(c)
-        x = _ffn(layer, cfg, x + h)
+        x, _ = _ffn(layer, cfg, i, x + h)
     return _head(params, cfg, x), new_cache

@@ -58,17 +58,19 @@ def test_smoke_config_matches_reference_field_for_field():
 
 
 DENSE = ["smollm-135m", "internlm2-1.8b", "nemotron-4-15b", "qwen1.5-32b"]
+MOE = ["qwen3-moe-30b-a3b", "llama4-scout-17b-a16e"]
 
 
-@pytest.mark.parametrize("name", [n for n in ARCH_NAMES if n not in DENSE + ["mamba2-370m"]])
+@pytest.mark.parametrize("name", [n for n in ARCH_NAMES
+                                  if n not in DENSE + MOE + ["mamba2-370m"]])
 def test_unported_archs_refuse(name):
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 9\.[2-5]"):
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 9\.[3-5]"):
         get_config(name)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + MOE)
 def test_dense_archs_serve_through_the_launcher(name, capsys):
-    """Each dense config's smoke variant through ``--mode lm`` on the CPU: the
+    """Each dense and MoE config's smoke variant through ``--mode lm`` on the CPU: the
     launcher's tokens are the model API's, its ``prefill_cache`` is a fresh
     prefill's (the decode steps wrote their slots into the live cache only),
     and ``--engine plan`` runs the same code."""

@@ -87,6 +87,8 @@ ENTRY_POINTS = {
     "models.init_params": lambda: models.init_params(get_config("mamba2-370m", variant="smoke")),
     "models.init_params dense": lambda: models.init_params(
         get_config("smollm-135m", variant="smoke")),
+    "models.init_params moe": lambda: models.init_params(
+        get_config("qwen3-moe-30b-a3b", variant="smoke")),
     "serve.main lm": lambda: serve.main(["--mode", "lm", "--variant", "smoke", "--batch", "1",
                                          "--prompt_len", "4", "--gen", "1"]),
     "profile_lm.main": lambda: profile_lm.main([]),

@@ -78,15 +78,17 @@ def test_ckpt_restart_resumes_bitwise(tmp_path, capfd):
 
 
 DENSE = ["smollm-135m", "internlm2-1.8b", "nemotron-4-15b", "qwen1.5-32b"]
+MOE = ["qwen3-moe-30b-a3b", "llama4-scout-17b-a16e"]
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_NAMES if a not in DENSE + ["mamba2-370m"]])
+@pytest.mark.parametrize("arch", [a for a in ARCH_NAMES
+                                  if a not in DENSE + MOE + ["mamba2-370m"]])
 def test_other_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 9\.[2-5]"):
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 9\.[3-5]"):
         train.main(["--arch", arch, "--device", "cpu", "--world", "1"])
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_dense_archs_train_through_the_launcher(arch, capfd):
     capfd.readouterr()
     out = train.main(["--arch", arch, "--variant", "smoke", "--steps", "2", "--batch", "4",
@@ -95,6 +97,9 @@ def test_dense_archs_train_through_the_launcher(arch, capfd):
     assert lines[0].startswith(f"arch={arch}-smoke params=") and lines[-1] == "done"
     assert len([ln for ln in lines if ln.startswith("step")]) == 2
     assert np.isfinite(out["loss"]) and np.isfinite(out["ce"])
+    if arch in MOE:  # the router terms are in the loss
+        assert np.isfinite(out["aux_loss"]) and np.isfinite(out["z_loss"])
+        assert out["loss"] > out["ce"]
 
 
 def test_world_and_batch_are_checked():
