@@ -196,9 +196,34 @@ Phases, one line or more each; any failure raises and exits non-zero:
              the model API (steps whose top-1 decode dropped a token at cap
              1 counted) and its smoke variant's float32 decode check at
              drop-free capacity;
+  4d. main-hybrid jamba-1.5-large-398b at full width, depth cut to 4 (m+MLP,
+             m+MoE, m+MLP, a+MoE; 22.98 B parameters, bf16; a period of 8
+             layers would not fit the card), ``ssd_fused`` (the kernel
+             route), served through the model API at the LM geometry with
+             counters set to 0 before and read after: ssd_intra exactly 3
+             Mamba2 layers x 2 prefill calls, every other counter 0;
+             ssd_intra against its plain version at the hybrid's prefill
+             shape (H = 256), timed with its bound; one full-width Mamba2
+             layer with its MLP in float32 through the kernel and the plain
+             route (LM_TOL or the f64 witness rule, as main-lm); the smoke
+             variant's float32 decode against its forward at drop-free
+             capacity; the train launcher at the smoke variant (its loss
+             falls);
+  4e. main-vlm qwen2-vl-2b through the LM launcher at full width and depth
+             (1024 patch embeddings ahead of the 512-token prompt; the cache
+             holds the prefix, decode from position 1536); float32 decode vs
+             forward at depth 2 with the launcher's cache sizing; 10 steps
+             of training at full width and depth, batch 8 x (1024 patches +
+             128 tokens), the loss falling; counters 0;
+  4f. main-audio whisper-tiny through the LM launcher at full width (B = 4 x
+             1500 frames encoded, 32 tokens from BOS at position 0); float32
+             decode vs the teacher-forced forward over BOS and the
+             launcher's tokens; 10 training steps with frames, the loss
+             falling; counters 0;
   5. report  the kernels JSON line (``launches``: the sum over the field,
-             stream, churn, faults, daemon, prune, sharded, train, LM, dense
-             and MoE paths' runs, each path's count beside it), the card's
+             stream, churn, faults, daemon, prune, sharded, train, LM, dense,
+             MoE, hybrid, VLM and audio paths' runs, each path's count beside
+             it; ssd_intra's row also holds its H = 256 times), the card's
              name and power limit, and the final {"ok": true, ...} line.
 
 Tolerances are the reference's own.  Per color step, on identical inputs:
@@ -2725,15 +2750,16 @@ def check_adamw(torch, norm: float, grads: dict, before: dict, after: dict, step
 
 
 def train_and_time(torch, cfg, dp_mode: str, group, world: int, steps: int, leaves,
-                   label: str) -> tuple[dict, dict]:
+                   label: str, extras: dict | None = None) -> tuple[dict, dict]:
     """``cfg`` (random weights from seed 0) trained with the launcher's build
     (AdamW on its cosine schedule for ``steps`` steps) at batch 8 x 128: a
     warm-up step, then ``steps - 1`` timed steps, with one host read of the
     loss (and of an MoE model's router losses) per step; the AdamW update of
     ``leaves`` after the first step against the float64 formula (only those
     leaves are cloned, with their gradients, so a model of 2 B parameters
-    keeps its optimizer's room); the loss finite and falling.  Returns the
-    readings and the last step's metrics."""
+    keeps its optimizer's room); the loss finite and falling.  ``extras``
+    (a VLM's ``patch_embeds``, an encoder-decoder's ``frames``) join every
+    batch.  Returns the readings and the last step's metrics."""
     from repro_torch import optim, tree
     from repro_torch.data import synthetic_lm_stream
     from repro_torch.launch import train
@@ -2742,7 +2768,7 @@ def train_and_time(torch, cfg, dp_mode: str, group, world: int, steps: int, leav
 
     stream = synthetic_lm_stream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
     batches = [{k: torch.as_tensor(v, device="cuda") for k, v in stream.batch_at(i).items()}
-               for i in range(steps)]
+               | (extras or {}) for i in range(steps)]
     # the launcher's schedule (train.build) at the first step
     lr_1 = float(cosine_warmup(TRAIN_LR, min(100, steps // 10 + 1), steps)(1))
     opt, _ = train.build(cfg, dp_mode=dp_mode, lr=TRAIN_LR, steps=steps, group=group,
@@ -2853,7 +2879,8 @@ TRAIN_ARGV = ["--arch", "mamba2-370m", "--variant", "full", "--steps", "3", "--b
 
 def run_train_launcher(torch, argv=TRAIN_ARGV, label: str = "main-train") -> dict:
     """``python -m repro_torch.launch.train`` in a subprocess (one rank per
-    card, NCCL): it must print ``done``."""
+    card, NCCL): it must print ``done``.  Returns its time, its line count
+    and the losses of its ``step`` lines."""
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
     print(f"{label}: python -m repro_torch.launch.train " + " ".join(argv))
     t0 = time.perf_counter()
@@ -2864,7 +2891,8 @@ def run_train_launcher(torch, argv=TRAIN_ARGV, label: str = "main-train") -> dic
         print(f"{label} launcher: " + line)
     check(out.returncode == 0 and lines and lines[-1] == "done",
           f"{label}: the launcher failed: {out.stderr[-2000:]}")
-    return dict(launcher_s=time.perf_counter() - t0, lines=len(lines))
+    losses = [float(ln.split("loss=")[1].split()[0]) for ln in lines if ln.startswith("step")]
+    return dict(launcher_s=time.perf_counter() - t0, lines=len(lines), losses=losses)
 
 
 # ---------------------------------------------------------------------------
@@ -2899,7 +2927,12 @@ def lm_route(torch, cfg, params, prompt, tokens):
     return out
 
 
-def compare_lm(torch, res) -> dict:
+def n_mixers(cfg) -> int:
+    """The Mamba2 layers of ``cfg``: the prefill's ssd_intra launches per call."""
+    return sum(cfg.layer_kind(i) == "m" for i in range(cfg.n_layers))
+
+
+def compare_lm(torch, res, label: str = "main-lm") -> dict:
     """Kernel route against plain route at full width in float32 (same weights,
     same prompt), both also against the plain route in float64."""
     from repro_torch.models import init_params
@@ -2919,24 +2952,24 @@ def compare_lm(torch, res) -> dict:
     for key in ("logits", "states", "decode"):
         k, p, w = runs["cuda"][key], runs["plan"][key], runs["f64"][key]
         check(bool(torch.isfinite(k).all()) and bool(torch.isfinite(p).all()),
-              f"main-lm f32 {key}: non-finite values")
+              f"{label} f32 {key}: non-finite values")
         r = dict(kernel_vs_plain=max_err(k, p), kernel_vs_f64=max_err(k, w),
                  plain_vs_f64=max_err(p, w), max_abs=float(w.abs().max()))
         ok_direct &= excess(k, p, LM_TOL) <= LM_TOL
         ok_witness &= r["kernel_vs_f64"] <= LM_WITNESS_FACTOR * r["plain_vs_f64"]
         readings[key] = r
-        print(f"main-lm: float32 {key}: kernel vs plain max |d| "
+        print(f"{label}: float32 {key}: kernel vs plain max |d| "
               f"{r['kernel_vs_plain']:.3g}; against the f64 witness kernel "
               f"{r['kernel_vs_f64']:.3g}, plain {r['plain_vs_f64']:.3g} "
               f"(|f64| up to {r['max_abs']:.3g})")
     check(ok_direct or ok_witness,
-          f"main-lm: kernel and plain routes differ beyond {LM_TOL} and the kernel's "
+          f"{label}: kernel and plain routes differ beyond {LM_TOL} and the kernel's "
           f"error against the f64 witness exceeds {LM_WITNESS_FACTOR} x the plain "
           f"route's: {json.dumps(readings)}")
     how = (f"within {LM_TOL} abs + rel" if ok_direct else
            f"beyond {LM_TOL}, within {LM_WITNESS_FACTOR} x the plain route's f64 error")
-    print(f"main-lm: float32 kernel vs plain route ok ({how}): prefill logits, "
-          f"{cfg.n_layers} final SSM states, {LM_DECODE_STEPS} teacher-forced decode steps")
+    print(f"{label}: float32 kernel vs plain route ok ({how}): prefill logits, "
+          f"{n_mixers(cfg)} final SSM states, {LM_DECODE_STEPS} teacher-forced decode steps")
     return readings
 
 
@@ -2982,8 +3015,13 @@ def run_dense_serve(torch, mods, argv, arch: str, label: str = "main-dense",
     b, gen = (int(argv[argv.index(flag) + 1]) for flag in ("--batch", "--gen"))
     check(cfg.name == arch and cfg.family == family and cfg.dtype == "bfloat16",
           f"{label}: the launcher served {cfg.name}, expected {arch} at full width")
-    check(res["logits"].shape == (b, 1, cfg.vocab_size)
-          and bool(torch.isfinite(res["logits"]).all()), f"{label}: {arch} prefill logits")
+    if cfg.is_encoder_decoder:  # its prefill encodes and returns no logits
+        cross = res["prefill_cache"]["cross_k"]
+        check(res["logits"] is None and bool(torch.isfinite(cross).all())
+              and cross.shape[2] == cfg.encoder_seq, f"{label}: {arch} cross K/V")
+    else:
+        check(res["logits"].shape == (b, 1, cfg.vocab_size)
+              and bool(torch.isfinite(res["logits"]).all()), f"{label}: {arch} prefill logits")
     check(res["tokens"].shape == (b, gen) and int(res["tokens"].min()) >= 0
           and int(res["tokens"].max()) < cfg.vocab_size, f"{label}: {arch} tokens")
     peak = torch.cuda.max_memory_allocated()
@@ -2995,49 +3033,68 @@ def run_dense_serve(torch, mods, argv, arch: str, label: str = "main-dense",
     return launches, readings, res
 
 
-def decode_vs_forward(torch, cfg, params, tokens, n_prefill: int) -> dict:
+def decode_vs_forward(torch, cfg, params, tokens, n_prefill: int, extras=None) -> dict:
     """Prefill ``tokens[:, :n_prefill]``, decode the rest teacher-forced, and
     the forward over all of ``tokens``: {"prefill": (got, want), "decode":
-    (got, want)}, the forward's logits at the same positions as ``want``."""
-    from repro_torch.models import decode_step, forward_logits, init_cache, prefill
+    (got, want)}, the forward's logits at the same positions as ``want``.
+    ``extras`` are the stub inputs: behind a VLM's patch prefix the cache
+    has the launcher's sizing (``serve.lm_cache_len``) and the decode starts
+    at ``n_patches + n_prefill``; an encoder-decoder's prefill encodes its
+    frames and returns no logits, and every token, BOS first, is decoded
+    from position 0 ({"decode": ...} only)."""
+    from repro_torch.launch.serve import lm_cache_len
+    from repro_torch.models import (decode_start, decode_step, forward_logits, init_cache,
+                                    prefill)
 
+    extras = extras or {}
     b, s = tokens.shape
+    if cfg.is_encoder_decoder:
+        n_prefill = 0
+    max_seq = lm_cache_len(cfg, n_prefill, s - n_prefill) if extras else s
+    start = decode_start(cfg, n_prefill, extras)
     with torch.inference_mode():
-        full, _ = forward_logits(cfg, params, {"tokens": tokens})
-        cache = init_cache(cfg, b, s, device=tokens.device)
-        logits, cache = prefill(cfg, params, {"tokens": tokens[:, :n_prefill]}, cache)
+        full, _ = forward_logits(cfg, params, {"tokens": tokens, **extras})
+        cache = init_cache(cfg, b, max_seq, device=tokens.device)
+        logits, cache = prefill(cfg, params, {"tokens": tokens[:, :n_prefill], **extras}, cache)
         steps = []
         for t in range(n_prefill, s):
-            step, cache = decode_step(cfg, params, tokens[:, t:t + 1], cache, t)
+            step, cache = decode_step(cfg, params, tokens[:, t:t + 1], cache,
+                                      start + t - n_prefill)
             steps.append(step)
-    return {"prefill": (logits[:, 0], full[:, n_prefill - 1]),
-            "decode": (torch.cat(steps, dim=1), full[:, n_prefill:])}
+    out = {"decode": (torch.cat(steps, dim=1), full[:, n_prefill:])}
+    if logits is not None:
+        out = {"prefill": (logits[:, 0], full[:, n_prefill - 1])} | out
+    return out
 
 
-def check_decode(torch, cfg, params, tokens, n_prefill: int, tol, label: str) -> dict:
+def check_decode(torch, cfg, params, tokens, n_prefill: int, tol, label: str,
+                 extras=None) -> dict:
     """Decode against forward in float32 at ``tol`` (prefill, decode steps),
     abs + rel; should a side differ by more, both are held to the same
     weights in float64 and the decode route's error may be at most
     LM_WITNESS_FACTOR times the forward's.  The witness keeps an MoE
-    router in float32, where the model routes in every dtype."""
+    router in float32, where the model routes in every dtype.  ``extras``
+    as ``decode_vs_forward`` takes them."""
     import copy
 
     from repro_torch.models.layers import MoE
 
-    got = decode_vs_forward(torch, cfg, params, tokens, n_prefill)
+    got = decode_vs_forward(torch, cfg, params, tokens, n_prefill, extras)
+    tols = {"prefill": tol[0], "decode": tol[1]}
     readings, ok = {}, True
-    for (key, (a, b)), t in zip(got.items(), tol):
+    for key, (a, b) in got.items():
         check(bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all()),
               f"{label}: non-finite {key} logits")
-        readings[key] = dict(max_abs_diff=max_err(a, b), max_abs=float(b.abs().max()), tol=t)
-        ok &= excess(a, b, t) <= t
+        readings[key] = dict(max_abs_diff=max_err(a, b), max_abs=float(b.abs().max()),
+                             tol=tols[key])
+        ok &= excess(a, b, tols[key]) <= tols[key]
     if not ok:
         p64 = copy.deepcopy(params).double()
         for mod in p64.modules():
             if isinstance(mod, MoE):
                 mod.router.data = mod.router.data.float()
         wit = decode_vs_forward(torch, dataclasses.replace(cfg, dtype="float64"), p64,
-                                tokens, n_prefill)
+                                tokens, n_prefill, extras)
         for key, (a, b) in got.items():
             w = wit[key][1]
             r = readings[key]
@@ -3321,6 +3378,262 @@ def run_moe(torch, mods) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4d: the hybrid, jamba-1.5-large-398b at full width and depth 4.
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH = "jamba-1.5-large-398b"
+# Full width, depth cut to 4 (m+MLP, m+MoE, m+MLP, a+MoE: every layer kind of
+# its period but attention with an MLP): 22.98 B parameters, 42.8 GiB in bf16.
+# A whole period of 8 layers would hold 90.3 GB of weights, more than the card.
+HYBRID_DEPTH = 4
+HYBRID_SSD = (4, 512, 256, 64, 128, 256)  # b, s, H, P, N, chunk of its prefill
+HYBRID_TRAIN_ARGV = ["--arch", HYBRID_ARCH, "--variant", "smoke", "--steps", "3",
+                     "--log_every", "1"]
+
+
+def serve_hybrid(torch, mods, label: str) -> tuple[dict, dict]:
+    """jamba at full width, depth HYBRID_DEPTH, ``ssd_fused=True`` (the
+    launcher's ``--engine cuda``), through the model API at the LM geometry
+    (B = 4 x 512, 32 greedy tokens after a warm-up prefill and step), launch
+    counters set to 0 before and read after: ssd_intra once per Mamba2
+    layer and prefill (the ledger's ``lm.prefill.ssd``), every other
+    counter 0."""
+    from repro_torch.analysis import launch_ledger
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+
+    full = get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(full, n_layers=HYBRID_DEPTH, ssd_fused=True)
+    period = dataclasses.replace(full, n_layers=full.block_len)
+    kinds = [cfg.layer_kind(i) + ("+MoE" if cfg.layer_is_moe(i) else "+MLP")
+             for i in range(cfg.n_layers)]
+    print(f"{label}: {HYBRID_ARCH} at full width, depth cut {full.n_layers} -> {cfg.n_layers} "
+          f"({' '.join(kinds)}): {cfg.n_params() / 1e9:.2f} B params, "
+          f"{2 * cfg.n_params() / 2**30:.1f} GiB in bf16 (a period of {full.block_len} layers: "
+          f"{2 * period.n_params() / 1e9:.1f} GB)")
+    b, s0, gen = 4, 512, 32
+    for mod in mods.values():
+        mod.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_all = time.perf_counter()
+    params = init_params(cfg, LM_SEED, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(LM_SEED)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s0), generator=g, device="cuda")
+
+    def fresh_cache():
+        return init_cache(cfg, b, s0 + gen + 1, device="cuda")
+
+    with torch.inference_mode():
+        logits, cache = prefill(cfg, params, {"tokens": prompt}, fresh_cache())
+        decode_step(cfg, params, torch.argmax(logits[:, -1:], dim=-1), cache, s0)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(cfg, params, {"tokens": prompt}, fresh_cache())
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        out = []
+        t0 = time.perf_counter()
+        for i in range(gen):
+            step, cache = decode_step(cfg, params, tok, cache, s0 + i)
+            tok = torch.argmax(step[:, -1:], dim=-1)
+            out.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    launches = {name: mod.launches for name, mod in mods.items()}
+    prefill_calls = 2
+    want = launch_ledger.expected({"lm.prefill.ssd": n_mixers(cfg) * prefill_calls})
+    print(f"{label}: kernel launches " + json.dumps(launches)
+          + f" ({n_mixers(cfg)} Mamba2 layers x {prefill_calls} prefill calls)")
+    check(launches == want, f"{label}: kernel launches {launches}, expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    tokens = torch.cat(out, dim=1)
+    check(bool(torch.isfinite(logits).all()) and bool(torch.isfinite(step).all()),
+          f"{label}: non-finite logits")
+    check(tokens.shape == (b, gen) and int(tokens.min()) >= 0
+          and int(tokens.max()) < cfg.vocab_size, f"{label}: tokens")
+    readings = dict(params=cfg.n_params(), layers=cfg.n_layers, prefill_s=prefill_s,
+                    decode_s=decode_s, tok_s=b * gen / decode_s, peak_bytes=peak,
+                    prefill_calls=prefill_calls, wall_s=time.perf_counter() - t_all)
+    print(f"{label}: {cfg.name} ({cfg.n_params() / 1e9:.2f} B params, {cfg.dtype}, "
+          f"ssd_fused) B = {b} x {s0}: prefill {prefill_s:.4f}s, decode "
+          f"{readings['tok_s']:.1f} tok/s ({1e3 * decode_s / gen:.2f} ms/step), peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    del params, cache, logits, step
+    torch.cuda.empty_cache()
+    return launches, readings
+
+
+def check_ssd_hybrid(torch, label: str) -> dict:
+    """ssd_intra against ssd_intra_ref at jamba's prefill shape (H = 256),
+    within SSD_TOL, then timed as ``time_ssd_intra`` times it."""
+    from repro_torch.kernels import ssd_intra as si
+
+    b, s, h, p, n, cs = HYBRID_SSD
+    x, dt, a, bm, cm = ssd_inputs(torch, b, s, h, p, n, seed=11)
+    da_cum = torch.cumsum((dt * a).reshape(b, s // cs, cs, h), dim=2).reshape(b, s, h)
+    ins = (x, dt, da_cum.contiguous(), bm, cm)
+    got = si.ssd_intra(*ins, chunk=cs)
+    ref = si.ssd_intra_ref(*ins, cs)
+    torch.cuda.synchronize()
+    err = max_err(got, ref)
+    check(got.shape == (b, s, h, p) and bool(torch.isfinite(got).all())
+          and excess(got, ref, SSD_TOL) <= SSD_TOL,
+          f"{label}: ssd_intra at H={h}: max |err| {err:.3g} (tol {SSD_TOL} + {SSD_TOL} |ref|)")
+    del got, ref
+    t = time_ssd_intra(torch, ins, cs)
+    t.update(max_abs_err=err, shape=dict(B=b, S=s, H=h, P=p, N=n, chunk=cs))
+    print(f"{label}: ssd_intra ok at B={b} S={s} H={h} P={p} N={n} chunk={cs}: max |err| "
+          f"{err:.3g} (tol {SSD_TOL} + {SSD_TOL} |ref|); {t['ms']:.4f} ms on the card "
+          f"({t['call_ms']:.4f} ms per call), plain {t['plain_ms']:.4f} ms, bound "
+          f"{t['bound_ms']:.4f} ms by {t['bound_by']} (f32 FMA {t['bound_f32_fma_ms']:.4f} ms)")
+    return t
+
+
+def run_hybrid(torch, mods) -> tuple[dict, dict]:
+    """Phase 4d: jamba served at full width and depth 4 with the ssd_intra
+    kernel; the kernel at its H = 256 shape; one full-width Mamba2 layer
+    (with its MLP) in float32 through the kernel and the plain route,
+    against each other or the f64 witness; the smoke variant's float32
+    decode against its forward at drop-free capacity; the train launcher at
+    the smoke variant (its loss falls)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    launches, readings = serve_hybrid(torch, mods, "main-hybrid")
+    readings["ssd_intra_h256"] = check_ssd_hybrid(torch, "main-hybrid")
+    b, s0 = 4, 512
+    one = dataclasses.replace(get_config(HYBRID_ARCH), n_layers=1)
+    g = torch.Generator(device="cuda").manual_seed(LM_SEED)
+    prompt = torch.randint(0, one.vocab_size, (b, s0), generator=g, device="cuda")
+    toks = torch.randint(0, one.vocab_size, (b, LM_DECODE_STEPS), generator=g, device="cuda")
+    readings["f32_mixer_layer"] = compare_lm(torch, dict(cfg=one, prompt=prompt, tokens=toks),
+                                             "main-hybrid")
+    torch.cuda.empty_cache()
+    smoke = drop_free(get_config(HYBRID_ARCH, variant="smoke"))
+    gen = torch.Generator(device="cuda").manual_seed(LM_SEED)
+    toks = torch.randint(0, smoke.vocab_size, (2, 12), generator=gen, device="cuda")
+    readings["smoke_f32"] = check_decode(torch, smoke, init_params(smoke, LM_SEED, device="cuda"),
+                                         toks, 9, DENSE_TOL,
+                                         f"main-hybrid {smoke.name} float32 (capacity "
+                                         f"{smoke.capacity_factor})")
+    r = run_train_launcher(torch, HYBRID_TRAIN_ARGV, "main-hybrid")
+    check(len(r["losses"]) == 3 and r["losses"][-1] < r["losses"][0],
+          f"main-hybrid: the train launcher's loss did not fall: {r['losses']}")
+    readings["train_launcher"] = r
+    return launches, readings
+
+
+# ---------------------------------------------------------------------------
+# Phase 4e: the VLM, qwen2-vl-2b at full width and depth.
+# ---------------------------------------------------------------------------
+
+VLM_ARCH = "qwen2-vl-2b"
+VLM_ARGV = ["--mode", "lm", "--arch", VLM_ARCH, "--variant", "full", "--batch", "4",
+            "--prompt_len", "512", "--gen", "32"]
+VLM_DEPTH = 2  # layers of the float32 decode check
+VLM_ADAMW_LEAVES = ("embed", "layers.0.attn.wq.w", "layers.0.attn.wq.b",
+                    "layers.27.mlp.wd.w", "final_norm.scale")
+
+
+def run_vlm(torch, mods) -> tuple[dict, dict]:
+    """Phase 4e: qwen2-vl-2b through the LM launcher at full width and depth
+    (1024 patch embeddings + 512 tokens of prefill, the cache sized for the
+    prefix, decode from 1536); float32 decode against forward at depth 2
+    with the launcher's sizing and its prompt and patches; training at full
+    width and depth with patches.  Counters 0 throughout."""
+    launches, readings, res = run_dense_serve(torch, mods, VLM_ARGV, VLM_ARCH, "main-vlm", "vlm")
+    cfg, prompt, extras = res["cfg"], res["prompt"], res["extras"]
+    check(res["start"] == cfg.n_patches + prompt.shape[1] == 1536,
+          f"main-vlm: decode started at {res['start']}")
+    check(res["prefill_cache"][0]["k"].shape[1] == cfg.n_patches + prompt.shape[1] + 33,
+          "main-vlm: the cache does not hold the patch prefix")
+    del res
+    torch.cuda.empty_cache()
+    for mod in mods.values():
+        mod.launches = 0
+    from repro_torch.models import init_params
+
+    cut = dataclasses.replace(cfg, n_layers=VLM_DEPTH, dtype="float32", ssd_fused=False)
+    readings["f32"] = check_decode(torch, cut, init_params(cut, LM_SEED, device="cuda"),
+                                   prompt, DENSE_PREFILL, DENSE_TOL,
+                                   f"main-vlm float32 ({VLM_DEPTH} layers, {cfg.n_patches} "
+                                   f"patches, the launcher's cache sizing)", extras)
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(LM_SEED)
+    patches = {"patch_embeds": torch.randn((TRAIN_BATCH, cfg.n_patches, cfg.d_model),
+                                           generator=g, device="cuda")}
+    full = dataclasses.replace(cfg, ssd_fused=False)
+    r, _ = train_and_time(torch, full, "allreduce", None, 1, DENSE_TRAIN_STEPS + 1,
+                          VLM_ADAMW_LEAVES, "main-vlm train", patches)
+    losses = r["losses"]
+    print(f"main-vlm: train {full.name} at full width and depth ({full.n_params() / 1e9:.2f} B "
+          f"params, {r['leaves']} leaves) world=1 batch {TRAIN_BATCH} x ({full.n_patches} "
+          f"patches + {TRAIN_SEQ} tokens): {r['s_per_step']:.4f} s/step "
+          f"({r['tokens_per_s']:.0f} text tokens/s) over {DENSE_TRAIN_STEPS} steps after a "
+          f"{r['warmup_s']:.2f} s warm-up step; peak memory {r['peak_bytes'] / 2**30:.2f} GiB; "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    print("main-vlm: AdamW after one step vs the float64 formula: " + json.dumps(r["adamw"]))
+    readings["train"] = r
+    torch.cuda.synchronize()
+    after = {name: mod.launches for name, mod in mods.items()}
+    check(all(v == 0 for v in after.values()), f"main-vlm: a kernel was launched: {after}")
+    return {name: launches[name] + after[name] for name in mods}, readings
+
+
+# ---------------------------------------------------------------------------
+# Phase 4f: the encoder-decoder, whisper-tiny at full width and depth.
+# ---------------------------------------------------------------------------
+
+AUDIO_ARCH = "whisper-tiny"
+AUDIO_ARGV = ["--mode", "lm", "--arch", AUDIO_ARCH, "--variant", "full", "--batch", "4",
+              "--prompt_len", "512", "--gen", "32"]
+AUDIO_ADAMW_LEAVES = ("embed", "dec_pos", "enc_layers.0.attn.wq.w",
+                      "dec_layers.3.cross_attn.wk.w", "enc_norm.bias")
+
+
+def run_audio(torch, mods) -> tuple[dict, dict]:
+    """Phase 4f: whisper-tiny through the LM launcher at full width and depth
+    (B = 4 x 1500 frames encoded, 32 tokens from BOS at position 0); its
+    float32 decode against the teacher-forced forward over BOS and the
+    launcher's tokens; training at full width with frames.  Counters 0."""
+    launches, readings, res = run_dense_serve(torch, mods, AUDIO_ARGV, AUDIO_ARCH, "main-audio",
+                                              "audio")
+    cfg, extras, tokens = res["cfg"], res["extras"], res["tokens"]
+    check(res["start"] == 0 and extras["frames"].shape == (4, cfg.encoder_seq, cfg.d_model),
+          "main-audio: not decoded from BOS at position 0 over 1500 frames")
+    del res
+    for mod in mods.values():
+        mod.launches = 0
+    from repro_torch.models import init_params
+
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    seq = torch.cat([torch.zeros_like(tokens[:, :1]), tokens], dim=1)  # BOS + the launcher's
+    readings["f32"] = check_decode(torch, c32, init_params(c32, LM_SEED, device="cuda"), seq, 0,
+                                   DENSE_TOL, f"main-audio float32 ({seq.shape[1]} tokens from "
+                                   f"BOS, {cfg.encoder_seq} frames)", extras)
+    g = torch.Generator(device="cuda").manual_seed(LM_SEED)
+    frames = {"frames": torch.randn((TRAIN_BATCH, cfg.encoder_seq, cfg.d_model), generator=g,
+                                    device="cuda")}
+    r, _ = train_and_time(torch, cfg, "allreduce", None, 1, DENSE_TRAIN_STEPS + 1,
+                          AUDIO_ADAMW_LEAVES, "main-audio train", frames)
+    losses = r["losses"]
+    print(f"main-audio: train {cfg.name} at full width ({cfg.n_params() / 1e6:.1f}M params, "
+          f"{r['leaves']} leaves) world=1 batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens over "
+          f"{cfg.encoder_seq} frames: {r['s_per_step']:.4f} s/step ({r['tokens_per_s']:.0f} "
+          f"tokens/s) over {DENSE_TRAIN_STEPS} steps after a {r['warmup_s']:.2f} s warm-up "
+          f"step; peak memory {r['peak_bytes'] / 2**30:.2f} GiB; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}")
+    print("main-audio: AdamW after one step vs the float64 formula: " + json.dumps(r["adamw"]))
+    readings["train"] = r
+    torch.cuda.synchronize()
+    after = {name: mod.launches for name, mod in mods.items()}
+    check(all(v == 0 for v in after.values()), f"main-audio: a kernel was launched: {after}")
+    return {name: launches[name] + after[name] for name in mods}, readings
+
+
+# ---------------------------------------------------------------------------
 
 
 def run() -> int:
@@ -3500,10 +3813,10 @@ def run() -> int:
     print("main-lm: kernel launches " + json.dumps(lm_launches)
           + f" ({lm['prefill_calls']} prefill calls, the warm-up included)")
     cfg = lm["cfg"]
-    want = launch_ledger.expected({"lm.prefill.ssd": cfg.n_layers * lm["prefill_calls"]})
+    want = launch_ledger.expected({"lm.prefill.ssd": n_mixers(cfg) * lm["prefill_calls"]})
     check(lm_launches["ssd_intra"] == want["ssd_intra"],
           f"main-lm: ssd_intra launched {lm_launches['ssd_intra']} times, expected "
-          f"{cfg.n_layers} per prefill x {lm['prefill_calls']}")
+          f"{n_mixers(cfg)} per prefill x {lm['prefill_calls']}")
     check(lm_launches == want, f"main-lm: a kernel off the LM path was launched: {lm_launches}")
     b_lm, gen = (int(LM_ARGV[LM_ARGV.index(flag) + 1]) for flag in ("--batch", "--gen"))
     check(lm["logits"].shape == (b_lm, 1, cfg.vocab_size)
@@ -3529,11 +3842,26 @@ def run() -> int:
     moe_launches, moe_readings = run_moe(torch, mods)
     moe_readings["phase_s"] = time.perf_counter() - t0
     print("main-moe: " + json.dumps(moe_readings))
+    torch.cuda.empty_cache()
+
+    # 4d-4f. the hybrid, the VLM and the encoder-decoder -------------------
+    later = {}
+    for path, label, fn in (("hybrid", "main-hybrid", run_hybrid), ("vlm", "main-vlm", run_vlm),
+                            ("audio", "main-audio", run_audio)):
+        t0 = time.perf_counter()
+        got, r = fn(torch, mods)
+        r["phase_s"] = time.perf_counter() - t0
+        later[path] = got
+        print(f"{label}: " + json.dumps(r))
+        torch.cuda.empty_cache()
+        if path == "hybrid":
+            timing["ssd_intra"]["at_h256"] = {k: r["ssd_intra_h256"][k] for k in (
+                "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
     # each path's launches, counted from 0 around its run (rbf_gram: on none)
     by_path = {"field": launches, "stream": stream_launches, "churn": churn_launches,
                "faults": fault_launches, "daemon": daemon_launches, "prune": prune_launches,
                "sharded": sharded_launches, "train": train_launches, "lm": lm_launches,
-               "dense": dense_launches, "moe": moe_launches}
+               "dense": dense_launches, "moe": moe_launches} | later
 
     # 5. report --------------------------------------------------------------
     meta = {
@@ -3557,7 +3885,8 @@ def run() -> int:
                      "max_abs_err": err, "ms": t["ms"],
                      "call_ms": t["call_ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                     "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+                     "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+                    | ({"at_h256": t["at_h256"]} if "at_h256" in t else {}))
     print("main-lm: " + json.dumps({"f32_vs_plain_and_f64": lm_readings}))
     print(json.dumps({"kernels": rows}))
     print(smi)

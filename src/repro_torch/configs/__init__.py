@@ -4,12 +4,12 @@ Usage:  cfg = get_config("smollm-135m")
         cfg = get_config("smollm-135m", variant="long")   # sliding-window attention
         cfg = get_config("smollm-135m", variant="smoke")  # reduced smoke config
 
-The names are the reference's (``repro.configs.ARCH_NAMES``).  Ported: the
-dense decoders ``smollm-135m``, ``internlm2-1.8b``, ``nemotron-4-15b`` and
-``qwen1.5-32b``, the MoE decoders ``qwen3-moe-30b-a3b`` and
-``llama4-scout-17b-a16e``, and the SSM ``mamba2-370m``.  The other three
-need hybrid, VLM or encoder-decoder layers (ROADMAP Queue 1 items 9.3-9.5),
-and ``get_config`` refuses them, naming their item.
+The names are the reference's (``repro.configs.ARCH_NAMES``), all ten
+ported: the dense decoders ``smollm-135m``, ``internlm2-1.8b``,
+``nemotron-4-15b`` and ``qwen1.5-32b``, the MoE decoders
+``qwen3-moe-30b-a3b`` and ``llama4-scout-17b-a16e``, the SSM
+``mamba2-370m``, the attention/Mamba2/MoE hybrid ``jamba-1.5-large-398b``,
+the VLM ``qwen2-vl-2b`` and the encoder-decoder ``whisper-tiny``.
 """
 
 from __future__ import annotations
@@ -19,13 +19,16 @@ import dataclasses
 from ..models.config import ModelConfig, reduced
 from . import (
     internlm2_1_8b,
+    jamba_1_5_large_398b,
     llama4_scout_17b_a16e,
     mamba2_370m,
     nemotron_4_15b,
     qwen1_5_32b,
+    qwen2_vl_2b,
     qwen3_moe_30b_a3b,
     sensor_field,
     smollm_135m,
+    whisper_tiny,
 )
 
 ARCH_NAMES = [
@@ -49,13 +52,9 @@ _MODULES = {
     "qwen1.5-32b": qwen1_5_32b,
     "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
     "llama4-scout-17b-a16e": llama4_scout_17b_a16e,
-}
-
-# the ROADMAP Queue 1 item that ports each remaining architecture
-_UNPORTED = {
-    "jamba-1.5-large-398b": ("the attention/Mamba2/MoE hybrid stack", "9.3"),
-    "qwen2-vl-2b": ("VLM patches and M-RoPE", "9.4"),
-    "whisper-tiny": ("the encoder-decoder stack with LayerNorm", "9.5"),
+    "jamba-1.5-large-398b": jamba_1_5_large_398b,
+    "qwen2-vl-2b": qwen2_vl_2b,
+    "whisper-tiny": whisper_tiny,
 }
 
 # sliding window used for the long_500k sub-quadratic variant of attention archs
@@ -76,11 +75,6 @@ def long_context_variant(cfg: ModelConfig) -> ModelConfig:
 def get_config(name: str, *, variant: str | None = None) -> ModelConfig:
     if name not in ARCH_NAMES:
         raise ValueError(f"unknown architecture {name!r}")
-    if name in _UNPORTED:
-        what, item = _UNPORTED[name]
-        raise NotImplementedError(
-            f"{name} is not ported yet ({what}: ROADMAP Queue 1 item {item})"
-        )
     cfg = _MODULES[name].config()
     if variant in (None, "full"):
         return cfg

@@ -6,9 +6,9 @@ leaves, read out as numpy arrays, become the port's dataclasses on
 prefix (``"topology.positions"``, ``"layout.slot_owner"``).  Static fields
 (``n_stream``, ``topology.n_colors``, ``grid_shape``, ``k``, ...) are
 plain Python values in the same dict.  The reference's LM parameter tree
-becomes the port's ``Decoder`` (``lm_params_from_numpy``), one attention,
-MLP or MoE tree an ``Attention``, ``MLP`` or ``MoE``.  Dtypes are kept as
-given.
+becomes the port's ``Decoder`` or, for an encoder-decoder, ``EncDec``
+(``lm_params_from_numpy``), one attention, MLP or MoE tree an
+``Attention``, ``MLP`` or ``MoE``.  Dtypes are kept as given.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from .core.serving import ServingPlan
 from .core.sn_train import SNTrainProblem, SNTrainState
 from .core.topology import SensorTopology
 from .models import layers as L
+from .models import encdec as ED
 from .models import ssm as S
 from .models import transformer as T
 from .models.config import ModelConfig
@@ -147,40 +148,92 @@ def moe_from_numpy(tree: dict, *, device: str | torch.device = "cuda") -> L.MoE:
                  mlp_from_numpy(shared, device=dev) if shared else None)
 
 
+def _norm(flat: dict, prefix: str, dev: torch.device) -> L.RMSNorm | L.LayerNorm:
+    """``{prefix}.scale``, and ``{prefix}.bias`` where the norm is a LayerNorm."""
+    bias = flat.get(prefix + ".bias")
+    scale = _tensor(flat[prefix + ".scale"], dev)
+    return L.RMSNorm(scale) if bias is None else L.LayerNorm(scale, _tensor(bias, dev))
+
+
+def _unstack(flat: dict, prefix: str, n: int) -> list[dict]:
+    """The ``n`` slices of every leaf under ``prefix`` (a leading axis of n)."""
+    stacked = {k: np.asarray(v) for k, v in _sub(flat, prefix).items()}
+    for key, v in stacked.items():
+        if v.shape[0] != n:
+            raise ValueError(f"{prefix}{key}: leading axis {v.shape[0]}, expected {n}")
+    return [{k: v[i] for k, v in stacked.items()} for i in range(n)]
+
+
+def _layer(one: dict, cfg: ModelConfig, i: int, dev: torch.device):
+    """Decoder layer ``i`` from its leaves (``norm1.scale``, ``ssm.*`` or
+    ``attn.*``, and ``norm2.scale`` with ``mlp.*`` or ``moe.*`` where the
+    layer has an FFN)."""
+    ffn = None
+    if cfg.has_ffn:
+        ffn = (moe_from_numpy(_sub(one, "moe."), device=dev) if cfg.layer_is_moe(i)
+               else mlp_from_numpy(_sub(one, "mlp."), device=dev))
+    norm1 = _norm(one, "norm1", dev)
+    norm2 = _norm(one, "norm2", dev) if ffn is not None else None
+    if cfg.layer_kind(i) == "m":
+        return T.MixerLayer(norm1, ssm_mixer_from_numpy(_sub(one, "ssm."), device=dev),
+                            norm2, ffn)
+    return T.AttnLayer(norm1, attention_from_numpy(_sub(one, "attn."), device=dev), norm2, ffn)
+
+
 def lm_params_from_numpy(
     tree: dict, cfg: ModelConfig, *, device: str | torch.device = "cuda"
-) -> T.Decoder:
-    """The port's ``Decoder`` on ``device`` from the reference's parameter tree.
+) -> T.Decoder | ED.EncDec:
+    """The port's ``Decoder`` on ``device`` from the reference's parameter
+    tree, or its ``EncDec`` for an encoder-decoder config
+    (``encdec_params_from_numpy``).
 
     ``tree`` is the reference's ``init_params`` output read out as numpy
     (nested dicts, or one dict with dotted keys): ``embed``,
     ``final_norm.scale``, ``lm_head`` where the head is untied, and
-    ``blocks.layer0.*`` with a leading ``n_blocks`` axis, one block per
-    layer: ``norm1.scale`` and ``ssm.*`` for a mixer; ``norm1.scale``,
-    ``attn.{wq,wk,wv,wo}.{w,b}``, ``norm2.scale`` and ``mlp.{wg,wu,wd}.w``
-    for an attention layer, or, where ``cfg.layer_is_moe(i)``,
-    ``moe.{router,wg,wu,wd}`` and ``moe.shared.{wg,wu,wd}.w``.
+    ``blocks.layer{j}.*`` for j < ``cfg.block_len``, each with a leading
+    ``n_blocks`` axis: layer i is slot ``i % block_len`` of block
+    ``i // block_len``.  A layer holds ``norm1.scale`` and ``ssm.*`` (a
+    mixer) or ``attn.{wq,wk,wv,wo}.{w,b}``; where the config has an FFN,
+    ``norm2.scale`` and ``mlp.{wg,wu,wd}.w`` or, where
+    ``cfg.layer_is_moe(i)``, ``moe.{router,wg,wu,wd}`` and
+    ``moe.shared.{wg,wu,wd}.w``.
     """
+    if cfg.is_encoder_decoder:
+        return encdec_params_from_numpy(tree, cfg, device=device)
     dev = _device.resolve(device)
-    T.check_supported(cfg)
     flat = _flatten(tree)
-    stacked = {k: np.asarray(v) for k, v in _sub(flat, "blocks.layer0.").items()}
-    for key, v in stacked.items():
-        if v.shape[0] != cfg.n_layers:
-            raise ValueError(f"{key}: leading axis {v.shape[0]}, expected {cfg.n_layers}")
-    layers = []
-    for i in range(cfg.n_layers):
-        one = {k: v[i] for k, v in stacked.items()}
-        norm1 = L.RMSNorm(_tensor(one["norm1.scale"], dev))
-        if cfg.layer_kind(i) == "m":
-            layers.append(T.MixerLayer(norm1, ssm_mixer_from_numpy(_sub(one, "ssm."),
-                                                                   device=dev)))
-        else:
-            ffn = (moe_from_numpy(_sub(one, "moe."), device=dev) if cfg.layer_is_moe(i)
-                   else mlp_from_numpy(_sub(one, "mlp."), device=dev))
-            layers.append(T.AttnLayer(norm1, attention_from_numpy(_sub(one, "attn."), device=dev),
-                                      L.RMSNorm(_tensor(one["norm2.scale"], dev)), ffn))
+    slots = [_unstack(flat, f"blocks.layer{j}.", cfg.n_blocks) for j in range(cfg.block_len)]
+    layers = [_layer(slots[i % cfg.block_len][i // cfg.block_len], cfg, i, dev)
+              for i in range(cfg.n_layers)]
     head = flat.get("lm_head")
-    return T.Decoder(_tensor(flat["embed"], dev),
-                     L.RMSNorm(_tensor(flat["final_norm.scale"], dev)), layers,
+    return T.Decoder(_tensor(flat["embed"], dev), _norm(flat, "final_norm", dev), layers,
                      None if head is None else _tensor(head, dev))
+
+
+def encdec_params_from_numpy(
+    tree: dict, cfg: ModelConfig, *, device: str | torch.device = "cuda"
+) -> ED.EncDec:
+    """The port's ``EncDec`` on ``device`` from the reference's
+    ``init_encdec_params`` tree: ``embed``, ``dec_pos``, ``enc_norm.*`` and
+    ``dec_norm.*``, and ``enc_layers.*`` / ``dec_layers.*`` stacked on a
+    leading layer axis (``norm1``, ``attn`` / ``self_attn``, ``norm_x``,
+    ``cross_attn``, ``norm2``, ``mlp``); a LayerNorm has ``scale`` and
+    ``bias``."""
+    dev = _device.resolve(device)
+    flat = _flatten(tree)
+
+    def attn(one, key):
+        return attention_from_numpy(_sub(one, key + "."), device=dev)
+
+    def mlp(one):
+        return mlp_from_numpy(_sub(one, "mlp."), device=dev)
+
+    enc = [ED.EncLayer(_norm(one, "norm1", dev), attn(one, "attn"), _norm(one, "norm2", dev),
+                       mlp(one))
+           for one in _unstack(flat, "enc_layers.", cfg.n_encoder_layers)]
+    dec = [ED.DecLayer(_norm(one, "norm1", dev), attn(one, "self_attn"),
+                       _norm(one, "norm_x", dev), attn(one, "cross_attn"),
+                       _norm(one, "norm2", dev), mlp(one))
+           for one in _unstack(flat, "dec_layers.", cfg.n_layers)]
+    return ED.EncDec(_tensor(flat["embed"], dev), _tensor(flat["dec_pos"], dev), enc, dec,
+                     _norm(flat, "enc_norm", dev), _norm(flat, "dec_norm", dev))

@@ -3,13 +3,21 @@ decode steps of ``--arch`` (default ``mamba2-370m``) at full width
 (chip_smoke's main-lm and main-dense geometry: B=4, a 512-token prompt,
 seed 0) under ``torch.profiler``.
 
-For each window it prints the wall time, the device time summed over every
-kernel, the device's idle share (1 - device / wall; the profiler's own host
-cost inflates it) and the kernels that took the most device time, then one
-JSON line with the same numbers.
+The family's stub inputs are fed as the launcher feeds them
+(``serve.lm_extras``: a VLM's patch prefix, an encoder-decoder's frames,
+decoding from BOS at position 0).  For each window it prints the wall
+time, the device time summed over every kernel, the device's idle share
+(1 - device / wall; the profiler's own host cost inflates it) and the
+kernels that took the most device time, then one JSON line with the same
+numbers.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_lm --engine cuda
   PYTHONPATH=src python -m repro_torch.launch.profile_lm --arch smollm-135m
+  PYTHONPATH=src python -m repro_torch.launch.profile_lm \
+      --arch jamba-1.5-large-398b --layers 4
+
+``--layers N`` cuts the depth to N layers (full width), for a config
+whose full depth does not fit the card.
 """
 
 from __future__ import annotations
@@ -24,7 +32,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from .. import device as _device
 from ..configs import ARCH_NAMES, get_config
-from ..models import decode_step, init_cache, init_params, prefill
+from ..models import decode_start, decode_step, init_cache, init_params, prefill
+from .serve import lm_cache_len, lm_extras
 
 BATCH, PROMPT_LEN, DECODE_STEPS, SEED, TOP = 4, 512, 8, 0, 8
 
@@ -59,26 +68,34 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--engine", default="cuda", choices=["cuda", "plan"],
                     help="cuda: the ssd_intra kernel; plan: the plain ssd_chunked "
                          "(the same code for a dense decoder)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: the config's)")
     args = ap.parse_args(argv)
     dev = _device.resolve("cuda")
     cfg = dataclasses.replace(get_config(args.arch), ssd_fused=args.engine == "cuda")
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     params = init_params(cfg, SEED, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), generator=gen, device=dev)
+    extras = lm_extras(cfg, BATCH, gen, dev)
+    start = decode_start(cfg, PROMPT_LEN, extras)
 
     def run_prefill():
-        cache = init_cache(cfg, BATCH, PROMPT_LEN + DECODE_STEPS + 1, device=dev)
-        return prefill(cfg, params, {"tokens": prompt}, cache)
+        cache = init_cache(cfg, BATCH, lm_cache_len(cfg, PROMPT_LEN, DECODE_STEPS), device=dev)
+        return prefill(cfg, params, {"tokens": prompt, **extras}, cache)
 
     def run_decode(logits, cache):
-        tok = torch.argmax(logits[:, -1:], dim=-1)
+        tok = (torch.zeros((BATCH, 1), dtype=torch.long, device=dev) if logits is None
+               else torch.argmax(logits[:, -1:], dim=-1))
         for i in range(DECODE_STEPS):
-            logits, cache = decode_step(cfg, params, tok, cache, PROMPT_LEN + i)
+            logits, cache = decode_step(cfg, params, tok, cache, start + i)
             tok = torch.argmax(logits[:, -1:], dim=-1)
 
     logits, cache = run_prefill()  # warm-up
     run_decode(logits, cache)
-    out = {"device": torch.cuda.get_device_name(dev), "arch": cfg.name, "dtype": cfg.dtype,
+    out = {"device": torch.cuda.get_device_name(dev), "arch": cfg.name, "layers": cfg.n_layers,
+           "dtype": cfg.dtype,
            "engine": args.engine, "batch": BATCH, "prompt_len": PROMPT_LEN,
            "decode_steps": DECODE_STEPS}
     out["prefill"] = _window(run_prefill, dev)

@@ -27,7 +27,7 @@ from ..data import synthetic_lm_stream
 from ..models import init_params, loss_fn
 from ..optim import apply_updates
 from .profile_lm import _window
-from .train import build
+from .train import build, tokens_only
 
 BATCH, SEQ, LR, STEPS, SEED = 8, 128, 3e-4, 21, 0
 
@@ -36,8 +36,8 @@ def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="mamba2-370m", choices=ARCH_NAMES)
     args = ap.parse_args(argv)
+    cfg = tokens_only(get_config(args.arch))  # the launcher's batches: no frames
     ctx = distributed.init_group(0, 1, device="cuda")
-    cfg = get_config(args.arch)
     opt, step = build(cfg, dp_mode="sop_gossip", lr=LR, steps=STEPS, group=ctx.group,
                       world=1)
     params = init_params(cfg, SEED, device=ctx.device)

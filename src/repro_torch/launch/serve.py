@@ -22,13 +22,14 @@ serves kNN with the knn_fuse kernel; ``plan`` and ``dense`` run the plain
 PyTorch engines.
 
 ``--mode lm`` serves ``--arch`` (default ``smollm-135m``, as in the
-reference; the dense and MoE decoders and ``mamba2-370m`` are ported) from random
-weights made from ``--seed``: one prompt of ``--batch`` x ``--prompt_len``
-random tokens is prefilled, then ``--gen`` tokens are decoded greedily
-against the KV (attention) or SSM cache.  ``--engine cuda`` runs the
-prefill's SSD intra-chunk term in the ssd_intra kernel (``ssd_fused=True``);
-``plan`` runs the plain ``ssd_chunked``.  A dense or MoE decoder has no SSM
-layer, so both engines run the same code for it.
+reference; all ten architectures) from random weights made from
+``--seed``: one prompt of ``--batch`` x ``--prompt_len`` random tokens
+(behind the VLM's random patch embeddings; an encoder-decoder encodes
+random frame embeddings instead) is prefilled, then ``--gen`` tokens are
+decoded greedily against the KV (attention) or SSM cache.  ``--engine
+cuda`` runs the prefill's SSD intra-chunk term in the ssd_intra kernel
+(``ssd_fused=True``); ``plan`` runs the plain ``ssd_chunked``.  A model
+without a Mamba2 layer runs the same code under both engines.
 
 ``--stream A`` absorbs A arrivals after training, as the reference does:
 the topology gets ``ceil(A / n) + 4`` lanes of headroom, the arrivals are
@@ -88,6 +89,8 @@ Examples (on the GPU):
     --arch mamba2-370m --variant full --batch 4 --prompt_len 512 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
     --arch qwen3-moe-30b-a3b --variant full --batch 4 --prompt_len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
+    --arch qwen2-vl-2b --variant full --batch 4 --prompt_len 512 --gen 32
 """
 
 from __future__ import annotations
@@ -104,6 +107,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from .. import tree
 from ..configs import ARCH_NAMES, get_config
 from ..core import (
     Kernel,
@@ -124,7 +128,7 @@ from ..core import (
 )
 from ..kernels import _build
 from ..kernels.ops import kernel_matvec
-from ..models import decode_step, init_cache, init_params, prefill
+from ..models import decode_start, decode_step, init_cache, init_params, prefill
 
 
 # Hardened launch environment (the reference's HomebrewNLP run.sh pattern):
@@ -545,15 +549,45 @@ def field_requests(args: argparse.Namespace, prob, state, xq, plan=None, prune=N
     return out
 
 
+def lm_extras(cfg, batch: int, gen: torch.Generator, device) -> dict:
+    """The stub inputs a family needs beside its tokens, drawn from ``gen``:
+    ``patch_embeds`` (B, n_patches, d) for a VLM, ``frames`` (B, encoder_seq,
+    d) for an encoder-decoder, standard normal in float32 (the model casts
+    them to its dtype); {} for the others."""
+    if cfg.is_encoder_decoder:
+        return {"frames": torch.randn((batch, cfg.encoder_seq, cfg.d_model), generator=gen,
+                                      device=device)}
+    if cfg.n_patches:
+        return {"patch_embeds": torch.randn((batch, cfg.n_patches, cfg.d_model), generator=gen,
+                                            device=device)}
+    return {}
+
+
+def lm_cache_len(cfg, prompt_len: int, gen: int) -> int:
+    """Attention slots for a prompt of ``prompt_len`` tokens and ``gen``
+    decoded ones: a VLM's patch prefix takes ``n_patches`` slots more (the
+    reference's launcher leaves them out, and its decode then runs at
+    positions the prefill already took; ROADMAP Queue 3)."""
+    return cfg.n_patches + prompt_len + gen + 1
+
+
 @torch.inference_mode()
 def serve_lm(args: argparse.Namespace) -> dict:
     """Prefill one random prompt and decode ``--gen`` tokens greedily.
 
-    One prefill and one decode step run first as a warm-up, so the timed
-    prefill and decode hold no one-time costs (kernel loading, library
-    handles).  Returns ``cfg``, ``params``, ``prompt``, the timed prefill's
-    last-position ``logits`` (B, 1, V) and ``prefill_cache`` (a clone: the
-    decode steps write the attention caches in place), the generated
+    The prompt is ``--batch`` x ``--prompt_len`` random tokens and, where the
+    family needs them, the stub inputs of ``lm_extras``: a VLM prefills its
+    patch prefix ahead of the tokens and decodes from ``n_patches +
+    prompt_len`` (``models.decode_start``) against a cache of
+    ``lm_cache_len`` slots; an encoder-decoder's prefill encodes its frames
+    (it reads no tokens and returns no logits) and the decode starts from
+    BOS token 0 at position 0.  One prefill and one decode step run first
+    as a warm-up, so the timed prefill and decode hold no one-time costs
+    (kernel loading, library handles).  Returns ``cfg``, ``params``,
+    ``prompt``, ``extras`` (the stub inputs), the timed prefill's
+    last-position ``logits`` (B, 1, V; None for an encoder-decoder) and
+    ``prefill_cache`` (a clone: the decode steps write the attention caches
+    in place), ``start`` (the first decoded position), the generated
     ``tokens`` (B, gen), the final ``cache``, the timings and
     ``prefill_calls`` (prefills run, the warm-up included).
     """
@@ -569,26 +603,37 @@ def serve_lm(args: argparse.Namespace) -> dict:
     b, s0 = args.batch, args.prompt_len
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     prompt = torch.randint(0, cfg.vocab_size, (b, s0), generator=gen, device=dev)
-    batch = {"tokens": prompt}
-    max_seq = s0 + args.gen + 1
+    extras = lm_extras(cfg, b, gen, dev)
+    batch = {"tokens": prompt, **extras}
+    max_seq = lm_cache_len(cfg, s0, args.gen)
+    start = decode_start(cfg, s0, extras)
+
+    def first_token(logits):
+        if logits is None:  # an encoder-decoder: BOS
+            return torch.zeros((b, 1), dtype=torch.long, device=dev)
+        return torch.argmax(logits[:, -1:], dim=-1)
 
     logits, cache = prefill(cfg, params, batch, init_cache(cfg, b, max_seq, device=dev))
-    decode_step(cfg, params, torch.argmax(logits[:, -1:], dim=-1), cache, s0)  # warm-up
+    decode_step(cfg, params, first_token(logits), cache, start)  # warm-up
     _sync(dev)
     t0 = time.perf_counter()
     logits, cache = prefill(cfg, params, batch, init_cache(cfg, b, max_seq, device=dev))
-    tok = torch.argmax(logits[:, -1:], dim=-1)
+    tok = first_token(logits)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
-    print(f"prefill: {prefill_s:.4f}s ({b}x{s0} tokens)")
+    if cfg.is_encoder_decoder:
+        what = f"{b}x{cfg.encoder_seq} frames"
+    else:
+        what = f"{b}x{s0} tokens" + (f" behind {cfg.n_patches} patches" if extras else "")
+    print(f"prefill: {prefill_s:.4f}s ({what})")
 
-    res = dict(cfg=cfg, params=params, prompt=prompt, logits=logits,
-               prefill_cache=[{k: v.clone() for k, v in c.items()} for c in cache],
+    res = dict(cfg=cfg, params=params, prompt=prompt, extras=extras, logits=logits,
+               prefill_cache=tree.tree_map(torch.clone, cache), start=start,
                prefill_s=prefill_s, prefill_calls=2)
     out = []
     t0 = time.perf_counter()
     for i in range(args.gen):
-        step_logits, cache = decode_step(cfg, params, tok, cache, s0 + i)
+        step_logits, cache = decode_step(cfg, params, tok, cache, start + i)
         tok = torch.argmax(step_logits[:, -1:], dim=-1)
         out.append(tok)
     _sync(dev)

@@ -19,11 +19,14 @@ Metrics are averaged over the group.  ``--ckpt_dir`` saves every
 ``--ckpt_every`` steps from rank 0, in the reference's layout: the
 parameters' and optimizer state's leaves stacked on a leading replica axis;
 a restart restores each rank's replica and resumes at the saved step.
-``--arch`` defaults to ``smollm-135m``, as in the reference; the dense
-and MoE decoders and ``mamba2-370m`` are ported, and the other archs raise
-``NotImplementedError``.  An MoE model's loss holds the router terms
-(``models.loss_fn``); the returned metrics carry ``aux_loss`` and
-``z_loss``.
+``--arch`` defaults to ``smollm-135m``, as in the reference.  Every
+decoder trains on tokens only, as the reference's launcher feeds them (the
+VLM without its patch prefix).  The launcher has no frames to feed, so it
+refuses an encoder-decoder (``whisper-tiny``) with a ``ValueError``; that
+trains through ``models.make_train_step`` with a batch that holds
+``frames``.  An MoE model's loss holds the router terms
+(``models.loss_fn``), after attention or a Mamba2 mixer alike; the
+returned metrics carry ``aux_loss`` and ``z_loss``.
 
 Example (CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
@@ -136,8 +139,18 @@ def run(ctx: distributed.RankContext, args: argparse.Namespace) -> dict:
     return logged
 
 
+def tokens_only(cfg):
+    """``cfg``, or a ValueError for an encoder-decoder: the launcher feeds
+    tokens only, as the reference's does, and has no frames to feed."""
+    if cfg.is_encoder_decoder:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: the launcher feeds tokens only "
+                         "and has no frames for its encoder, as the reference's has none; "
+                         "train it through models.make_train_step with batch['frames']")
+    return cfg
+
+
 def _config(args: argparse.Namespace):
-    return get_config(args.arch, variant=None if args.variant == "full" else "smoke")
+    return tokens_only(get_config(args.arch, variant=None if args.variant == "full" else "smoke"))
 
 
 def parser() -> argparse.ArgumentParser:
@@ -161,7 +174,7 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> dict:
     args = parser().parse_args(argv)
-    _config(args)  # unported archs raise before any process starts
+    _config(args)  # an arch the launcher cannot feed raises before any process starts
     dev = _device.resolve(args.device)
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:  # started by torchrun
         ctx = distributed.init_group(device=args.device)

@@ -4,8 +4,7 @@ family (dense / moe / ssm / hybrid / vlm / audio).
 A field-for-field copy of the reference's ``repro.models.config`` (the port
 imports nothing of ``repro``): ``ModelConfig`` and ``reduced`` give the same
 values for every architecture, so a smoke config built by either package
-describes the same model.  The port runs the ``dense`` and ``ssm`` families
-so far.
+describes the same model.  The port runs every family.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Shared layers of the port's model stack: init helpers, dense, norms, RoPE,
 GQA attention with its ring-buffer KV cache, the MLPs and the MoE layer.
 
-The subset of the reference's ``repro.models.layers`` that the SSM, dense
-and MoE families use (M-RoPE and LayerNorm are not ported yet).
+The reference's ``repro.models.layers``, for every family: RMSNorm and
+LayerNorm, standard RoPE and M-RoPE, attention with or without RoPE and a
+causal mask, the MLPs and the MoE layer.
 Conventions:
   * weights keep the reference's layouts (a dense weight is (d_in, d_out),
     applied as ``x @ w``), so the reference's parameters carry across as
@@ -84,16 +85,34 @@ class RMSNorm(nn.Module):
         self.scale = param(scale)
 
 
-def norm_init(cfg: ModelConfig, device: torch.device) -> RMSNorm:
+class LayerNorm(nn.Module):
+    """The reference's ``norm_init`` / ``apply_norm`` for ``norm="layernorm"``:
+    ``scale`` and ``bias`` (d,)."""
+
+    def __init__(self, scale: torch.Tensor, bias: torch.Tensor):
+        super().__init__()
+        self.scale, self.bias = param(scale), param(bias)
+
+
+def norm_init(cfg: ModelConfig, device: torch.device) -> RMSNorm | LayerNorm:
+    ones = torch.ones(cfg.d_model, dtype=cdtype(cfg), device=device)
+    if cfg.norm == "layernorm":
+        return LayerNorm(ones, torch.zeros_like(ones))
     if cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            f"norm={cfg.norm!r} is not ported yet (ROADMAP Queue 1 item 9.5)"
-        )
-    return RMSNorm(torch.ones(cfg.d_model, dtype=cdtype(cfg), device=device))
+        raise ValueError(f"unknown norm {cfg.norm!r}")
+    return RMSNorm(ones)
 
 
-def apply_norm(p: RMSNorm, x: torch.Tensor) -> torch.Tensor:
+def apply_norm(p: RMSNorm | LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """The norm ``p`` is (the port's ``apply_norm`` takes no ``cfg``): RMS
+    with eps 1e-6, or LayerNorm (the biased variance) with eps 1e-5, the
+    math in float32 (float64 for a float64 model) and cast back."""
     xf = x.to(wide(x.dtype))
+    if isinstance(p, LayerNorm):
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + 1e-5)
+        return (y * p.scale.to(xf.dtype) + p.bias.to(xf.dtype)).to(x.dtype)
     ms = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(ms + 1e-6)
     return (y * p.scale.to(xf.dtype)).to(x.dtype)
@@ -112,7 +131,7 @@ def rms_norm_gated(scale: torch.Tensor, x: torch.Tensor, gate: torch.Tensor) -> 
 
 
 # ---------------------------------------------------------------------------
-# RoPE (standard mode)
+# RoPE / M-RoPE
 # ---------------------------------------------------------------------------
 
 
@@ -121,12 +140,24 @@ def _inv_freq(hd: int, theta: float, dtype: torch.dtype, device) -> torch.Tensor
 
 
 def rope_angles(cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
-    """Angles (B, S, hd // 2) for positions (B, S): ``positions * inv_freq``
-    in float32 (float64 for a float64 model)."""
-    if cfg.rope_mode == "mrope":
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP Queue 1 item 9.4)")
+    """Angles (B, S, hd // 2), ``position * inv_freq`` in float32 (float64 for
+    a float64 model).
+
+    standard: positions (B, S).
+    mrope:    positions (B, 3, S), the temporal, height and width streams;
+              the hd // 2 frequency slots are cut by ``cfg.mrope_sections``
+              and each section reads its own stream (Qwen2-VL Sec. 3).
+    """
     wd = wide(cdtype(cfg))
     inv = _inv_freq(cfg.hd, cfg.rope_theta, wd, positions.device)
+    if cfg.rope_mode == "mrope":
+        sections = cfg.mrope_sections
+        if sum(sections) != cfg.hd // 2:
+            raise ValueError(f"mrope_sections {sections} do not cut hd // 2 = {cfg.hd // 2}")
+        sec_id = torch.cat([torch.full((s,), i, device=positions.device)
+                            for i, s in enumerate(sections)])  # (hd/2,)
+        pos_sel = positions.index_select(1, sec_id)  # (B, hd/2, S)
+        return pos_sel.to(wd).transpose(1, 2) * inv
     return positions.to(wd)[..., None] * inv
 
 
@@ -165,13 +196,15 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig) -> Attention:
     )
 
 
-def _qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor, angles: torch.Tensor):
+def _qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor, angles, *, rope: bool = True):
     b, s, _ = x.shape
     hd = cfg.hd
     q = dense(p.wq, x).reshape(b, s, cfg.n_heads, hd)
     k = dense(p.wk, x).reshape(b, s, cfg.n_kv_heads, hd)
     v = dense(p.wv, x).reshape(b, s, cfg.n_kv_heads, hd)
-    return apply_rope(q, angles), apply_rope(k, angles), v
+    if rope:
+        q, k = apply_rope(q, angles), apply_rope(k, angles)
+    return q, k, v
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
@@ -207,13 +240,17 @@ def causal_mask(sq: int, sk: int, *, window: int = 0, offset: int = 0,
     return m
 
 
-def attn_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, angles: torch.Tensor, *,
-                 window: int = 0) -> torch.Tensor:
-    """Full-sequence causal attention (training / prefill)."""
+def attn_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, angles, *,
+                 causal: bool = True, window: int = 0, rope: bool = True) -> torch.Tensor:
+    """Full-sequence attention (training / prefill): causal, or bidirectional
+    (an encoder); ``rope=False`` leaves q and k unrotated (``angles`` unread)."""
     b, s, _ = x.shape
-    q, k, v = _qkv(p, cfg, x, angles)
-    mask = causal_mask(s, s, window=window, device=x.device).expand(b, s, s)
-    return dense(p.wo, _sdpa(q, k, v, mask, cfg))
+    q, k, v = _qkv(p, cfg, x, angles, rope=rope)
+    if causal:
+        mask = causal_mask(s, s, window=window, device=x.device)
+    else:
+        mask = torch.ones((s, s), dtype=torch.bool, device=x.device)
+    return dense(p.wo, _sdpa(q, k, v, mask.expand(b, s, s), cfg))
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, length: int, dtype, device) -> dict:
@@ -229,19 +266,27 @@ def init_kv_cache(cfg: ModelConfig, batch: int, length: int, dtype, device) -> d
 
 
 def attn_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor, cache: dict, position: int,
-                *, window: int = 0) -> tuple[torch.Tensor, dict]:
+                *, window: int = 0, rope: bool = True, rope_position: int | None = None
+                ) -> tuple[torch.Tensor, dict]:
     """One decode step, x (B, 1, d), against a ring-buffer cache.
 
     ``position`` is the new token's absolute position, a host int.  Its key
     and value are written IN PLACE at slot ``position % length`` of
     ``cache`` (the reference returns a new cache); the returned cache is
     the one passed in.  Keys attend where ``0 <= pos <= position`` and,
-    with a window, ``position - pos < window``.
+    with a window, ``position - pos < window``.  q and k are rotated at
+    ``rope_position`` where it is given (the M-RoPE streams' value, which
+    all three streams share, positions (B, 3, 1)), else at ``position``;
+    not at all under ``rope=False``.
     """
     b = x.shape[0]
     length = cache["k"].shape[1]
-    pos = torch.full((b, 1), position, dtype=torch.int32, device=x.device)
-    q, k, v = _qkv(p, cfg, x, rope_angles(cfg, pos))
+    angles = None
+    if rope:
+        rp = position if rope_position is None else rope_position
+        shape = (b, 3, 1) if cfg.rope_mode == "mrope" else (b, 1)
+        angles = rope_angles(cfg, torch.full(shape, rp, dtype=torch.int32, device=x.device))
+    q, k, v = _qkv(p, cfg, x, angles, rope=rope)
     slot = position % length
     cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
     cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)

@@ -76,8 +76,13 @@ def test_rope_angles_and_apply_rope():
     rot = TL.apply_rope(xt, quarter)
     half = tcfg.hd // 2
     torch.testing.assert_close(rot[..., :half], -xt[..., half:], atol=1e-6, rtol=0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9.4"):
-        TL.rope_angles(dataclasses.replace(tcfg, rope_mode="mrope"), torch.as_tensor(pos))
+    # M-RoPE (the VLM's; its own tests are tests/test_torch_vlm.py) at the same
+    # positions on all three streams
+    over = dict(rope_mode="mrope", mrope_sections=(4, 6, 6))
+    jm_cfg, tm_cfg = dataclasses.replace(jcfg, **over), dataclasses.replace(tcfg, **over)
+    pos3 = np.repeat(pos[:, None, :], 3, axis=1)
+    np.testing.assert_allclose(_np(TL.rope_angles(tm_cfg, torch.as_tensor(pos3))),
+                               np.asarray(JL.rope_angles(jm_cfg, jnp.asarray(pos3))), **TOL)
 
 
 @pytest.mark.parametrize("sq,sk,window,offset", [(6, 6, 0, 0), (5, 9, 3, 4), (1, 8, 4, 7)])

@@ -59,35 +59,57 @@ def test_smoke_config_matches_reference_field_for_field():
 
 DENSE = ["smollm-135m", "internlm2-1.8b", "nemotron-4-15b", "qwen1.5-32b"]
 MOE = ["qwen3-moe-30b-a3b", "llama4-scout-17b-a16e"]
+LATER = ["jamba-1.5-large-398b", "qwen2-vl-2b", "whisper-tiny"]  # hybrid, VLM, enc-dec
 
 
-@pytest.mark.parametrize("name", [n for n in ARCH_NAMES
-                                  if n not in DENSE + MOE + ["mamba2-370m"]])
-def test_unported_archs_refuse(name):
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 9\.[3-5]"):
-        get_config(name)
+def test_every_architecture_is_ported():
+    assert sorted(DENSE + MOE + LATER + ["mamba2-370m"]) == sorted(ARCH_NAMES)
+    for name in ARCH_NAMES:
+        assert get_config(name).name == name
 
 
-@pytest.mark.parametrize("name", DENSE + MOE)
+@pytest.mark.parametrize("name", DENSE + MOE + LATER)
 def test_dense_archs_serve_through_the_launcher(name, capsys):
-    """Each dense and MoE config's smoke variant through ``--mode lm`` on the CPU: the
-    launcher's tokens are the model API's, its ``prefill_cache`` is a fresh
-    prefill's (the decode steps wrote their slots into the live cache only),
-    and ``--engine plan`` runs the same code."""
+    """Each config's smoke variant (but mamba2-370m's) through ``--mode lm``
+    on the CPU: the launcher's tokens are the model API's greedy decode (with
+    the VLM's patch prefix, or the encoder-decoder's frames, that the
+    launcher drew), its ``prefill_cache`` is a fresh prefill's (the decode
+    steps wrote their slots into the live cache only: from ``n_patches + 11``
+    behind the VLM's prefix, from 0 for the encoder-decoder), and ``--engine
+    plan`` gives the same logits (bitwise where no Mamba2 layer runs)."""
     argv = ["--mode", "lm", "--device", "cpu", "--arch", name, "--variant", "smoke",
             "--batch", "2", "--prompt_len", "11", "--gen", "3", "--seed", "5"]
     res = serve.main(argv)
     assert f"arch={name}-smoke params=" in capsys.readouterr().out
-    cfg, params, prompt = res["cfg"], res["params"], res["prompt"]
-    want, _ = tm.greedy_decode(cfg, params, prompt, 3, 15)
+    cfg, params, prompt, extras = res["cfg"], res["params"], res["prompt"], res["extras"]
+    max_seq = serve.lm_cache_len(cfg, 11, 3)
+    start = res["start"]
+    assert start == (0 if cfg.is_encoder_decoder else cfg.n_patches + 11)
+    assert sorted(extras) == (["frames"] if cfg.is_encoder_decoder else
+                              ["patch_embeds"] if cfg.n_patches else [])
+    want, _ = tm.greedy_decode(cfg, params, prompt, 3, max_seq, batch_extra=extras)
     assert torch.equal(res["tokens"], want)
-    _, fresh = tm.prefill(cfg, params, {"tokens": prompt}, tm.init_cache(cfg, 2, 15, device=CPU))
-    for kept, new, live in zip(res["prefill_cache"], fresh, res["cache"]):
+    _, fresh = tm.prefill(cfg, params, {"tokens": prompt, **extras},
+                          tm.init_cache(cfg, 2, max_seq, device=CPU))
+    kept_all, live_all = res["prefill_cache"], res["cache"]
+    if cfg.is_encoder_decoder:
+        for key in ("cross_k", "cross_v"):
+            assert torch.equal(kept_all[key], fresh[key])
+        kept_all, fresh, live_all = kept_all["self"], fresh["self"], live_all["self"]
+    for kept, new, live in zip(kept_all, fresh, live_all):
+        if "state" in kept:  # a Mamba2 layer
+            assert all(torch.equal(kept[key], new[key]) for key in ("state", "conv"))
+            continue
         assert all(torch.equal(kept[key], new[key]) for key in ("k", "v", "pos"))
-        assert live["pos"][0, 11:14].tolist() == [11, 12, 13]
-        assert kept["pos"][0, 11:].tolist() == [-1] * 4
+        assert live["pos"][0, start:start + 3].tolist() == [start, start + 1, start + 2]
+        assert kept["pos"][0, start:].tolist() == [-1] * (max_seq - start)
     plain = serve.main(argv + ["--engine", "plan"])
-    assert torch.equal(plain["logits"], res["logits"])
+    if cfg.is_encoder_decoder:
+        assert res["logits"] is None and torch.equal(plain["tokens"], res["tokens"])
+    elif "m" in cfg.pattern:
+        torch.testing.assert_close(plain["logits"], res["logits"], atol=1e-5, rtol=1e-5)
+    else:
+        assert torch.equal(plain["logits"], res["logits"])
 
 
 @pytest.mark.parametrize("fused", [False, True])

@@ -10,7 +10,8 @@ import torch
 
 import repro_torch.core as tr
 from repro_torch import checkpoint, convert, data, distributed, models, optim, tree
-from repro_torch.configs import get_config
+from repro_torch.configs import (get_config, jamba_1_5_large_398b, qwen2_vl_2b,
+                                  whisper_tiny)
 from repro_torch.kernels import _build, color_step, gram, kernel_matvec, knn_fuse, ssd_intra
 from repro_torch.core import consensus, pruning, sop
 from repro_torch.data import lm
@@ -24,6 +25,10 @@ from repro_torch.analysis import (alive_audit, ast_lint, dtype_audit, entries, l
 # the modules of the multi-device and training slice
 TRAIN_SLICE = (sop, consensus, distributed, tree, optim, optimizers, schedules, data, lm,
                train, profile_train, multi_gpu, models.model)
+
+# the modules of the hybrid, VLM and encoder-decoder slice
+MODEL_SLICE = (models.encdec, models.transformer, models.layers, convert, jamba_1_5_large_398b,
+               qwen2_vl_2b, whisper_tiny)
 
 # the modules of the audit slice
 ANALYSIS = (analysis, report, ast_lint, launch_ledger, dtype_audit, alive_audit, sync_audit,
@@ -44,7 +49,7 @@ def _port_files():
 def test_port_never_imports_jax_or_the_reference():
     files = _port_files()
     assert len(files) > 10
-    for mod in (pruning, daemon) + TRAIN_SLICE + ANALYSIS:  # later slices' modules too
+    for mod in (pruning, daemon) + TRAIN_SLICE + ANALYSIS + MODEL_SLICE:  # later slices' too
         assert os.path.abspath(mod.__file__) in files
     for path in files:
         with open(path) as fh:
@@ -89,6 +94,16 @@ ENTRY_POINTS = {
         get_config("smollm-135m", variant="smoke")),
     "models.init_params moe": lambda: models.init_params(
         get_config("qwen3-moe-30b-a3b", variant="smoke")),
+    "models.init_params hybrid": lambda: models.init_params(
+        get_config("jamba-1.5-large-398b", variant="smoke")),
+    "models.init_params vlm": lambda: models.init_params(
+        get_config("qwen2-vl-2b", variant="smoke")),
+    "models.init_params encdec": lambda: models.init_params(
+        get_config("whisper-tiny", variant="smoke")),
+    "models.init_cache encdec": lambda: models.init_cache(
+        get_config("whisper-tiny", variant="smoke"), 1, 4),
+    "serve.main lm vlm": lambda: serve.main(["--mode", "lm", "--arch", "qwen2-vl-2b",
+                                             "--batch", "1", "--prompt_len", "4", "--gen", "1"]),
     "serve.main lm": lambda: serve.main(["--mode", "lm", "--variant", "smoke", "--batch", "1",
                                          "--prompt_len", "4", "--gen", "1"]),
     "profile_lm.main": lambda: profile_lm.main([]),

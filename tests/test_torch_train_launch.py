@@ -3,8 +3,10 @@ the CPU with 2 gloo ranks, beside the reference's launcher on 2 forced host
 devices (``tests/test_system.py:114``'s run, on ``mamba2-370m``): the same
 line shapes, then ``done``; a ``--ckpt_dir`` restart resumes at its saved
 step with the replicas' parameters and optimizer state bitwise those of
-the uninterrupted run; each dense config trains through the launcher at its
-smoke variant; the archs not yet ported raise."""
+the uninterrupted run; each decoder config trains through the launcher at
+its smoke variant (tokens only, as the reference's launcher feeds them);
+the encoder-decoder, which the launcher has no frames for, is refused
+before any process starts."""
 
 import os
 import re
@@ -79,16 +81,25 @@ def test_ckpt_restart_resumes_bitwise(tmp_path, capfd):
 
 DENSE = ["smollm-135m", "internlm2-1.8b", "nemotron-4-15b", "qwen1.5-32b"]
 MOE = ["qwen3-moe-30b-a3b", "llama4-scout-17b-a16e"]
+HYBRID = ["jamba-1.5-large-398b"]  # Mamba2 and attention layers, MoE after both
+VLM = ["qwen2-vl-2b"]  # fed tokens only: no patch prefix
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_NAMES
-                                  if a not in DENSE + MOE + ["mamba2-370m"]])
-def test_other_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 9\.[3-5]"):
-        train.main(["--arch", arch, "--device", "cpu", "--world", "1"])
+def test_encoder_decoder_is_refused_before_any_process_starts(monkeypatch):
+    """The reference's launcher feeds tokens only, so it cannot train
+    whisper-tiny; the port's says so with a ValueError and spawns nothing."""
+    monkeypatch.setattr(train.distributed, "spawn", _no_spawn)
+    monkeypatch.setattr(train.distributed, "init_group", _no_spawn)
+    assert "whisper-tiny" in ARCH_NAMES
+    with pytest.raises(ValueError, match="encoder-decoder.*frames"):
+        train.main(["--arch", "whisper-tiny", "--device", "cpu", "--world", "2"])
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+def _no_spawn(*a, **k):
+    raise AssertionError("a process group was started")
+
+
+@pytest.mark.parametrize("arch", DENSE + MOE + HYBRID + VLM)
 def test_dense_archs_train_through_the_launcher(arch, capfd):
     capfd.readouterr()
     out = train.main(["--arch", arch, "--variant", "smoke", "--steps", "2", "--batch", "4",
@@ -97,7 +108,7 @@ def test_dense_archs_train_through_the_launcher(arch, capfd):
     assert lines[0].startswith(f"arch={arch}-smoke params=") and lines[-1] == "done"
     assert len([ln for ln in lines if ln.startswith("step")]) == 2
     assert np.isfinite(out["loss"]) and np.isfinite(out["ce"])
-    if arch in MOE:  # the router terms are in the loss
+    if arch in MOE + HYBRID:  # the router terms are in the loss
         assert np.isfinite(out["aux_loss"]) and np.isfinite(out["z_loss"])
         assert out["loss"] > out["ce"]
 
