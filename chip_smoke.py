@@ -150,6 +150,18 @@ Phases, one line or more each; any failure raises and exits non-zero:
              ``python -m repro_torch.launch.train --arch mamba2-370m
              --variant full --steps 3`` in a subprocess, which must print
              ``done``;
+  3h. main-fsdp the spec-placed FSDP/TP train step (``repro_torch.sharding``:
+             each leaf placed by the reference's PartitionSpec rules, gathered
+             on use, gradients reduced back to the specs) over the group of
+             one as a 1 x 1 grid: nemotron-4-15b at full width with its depth
+             cut to what 0.9 of the card holds (3 layers, 4.32 B parameters,
+             on 80 GB; the cut reckoned from the shapes and printed), two
+             steps at batch 8 x 128, counters set to 0
+             before and read after (all 0); s/step, peak memory, the losses,
+             the first against ``loss_fn`` on the unsharded model (2e-5);
+             then the smoke variant in float32, two steps against
+             ``make_train_step`` on the card (loss, parameters and moments
+             2e-5 absolute + 2e-5 relative; whether bitwise);
   4. main-lm the port's launcher in LM mode: mamba2-370m at full width in
              its own bf16, random weights from seed 0, a 4 x 512 prompt
              and 32 greedy tokens, with every launch counter set to 0
@@ -221,7 +233,7 @@ Phases, one line or more each; any failure raises and exits non-zero:
              launcher's tokens; 10 training steps with frames, the loss
              falling; counters 0;
   5. report  the kernels JSON line (``launches``: the sum over the field,
-             stream, churn, faults, daemon, prune, sharded, train, LM, dense,
+             stream, churn, faults, daemon, prune, sharded, train, fsdp, LM, dense,
              MoE, hybrid, VLM and audio paths' runs, each path's count beside
              it; ssd_intra's row also holds its H = 256 times), the card's
              name and power limit, and the final {"ok": true, ...} line.
@@ -2895,6 +2907,64 @@ def run_train_launcher(torch, argv=TRAIN_ARGV, label: str = "main-train") -> dic
     return dict(launcher_s=time.perf_counter() - t0, lines=len(lines), losses=losses)
 
 
+def run_fsdp(torch, mods, ctx) -> tuple[dict, dict]:
+    """The spec-placed FSDP/TP train step (``repro_torch.sharding.steps``)
+    over the NCCL group of one as a 1 x 1 grid: nemotron-4-15b at full width
+    with its depth cut to what fits (``multi_gpu.fsdp_depth``: the cut
+    reckoned from the shapes and printed first), two steps at batch 8 x 128 with the counters
+    set to 0 before and read after (no kernel: all 0); s/step, the peak
+    memory, the losses, the first against ``loss_fn`` on the unsharded
+    model; then the smoke variant in float32 against ``make_train_step`` on
+    the card, two steps (2e-5 absolute + 2e-5 relative; whether bitwise)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import multi_gpu as mg
+    from repro_torch.sharding import steps as sharded
+
+    grid = sharded.make_grid(ctx, 1, 1)
+    card = torch.cuda.get_device_properties(0).total_memory
+    depth = mg.fsdp_depth(grid, card)
+    check(depth >= 1, "main-fsdp: no layer of the full-width model fits the card")
+    cfg, full = mg.fsdp_config("full", depth), get_config(mg.FSDP_ARCH)
+    rec, norm_bytes = mg.fsdp_bytes(cfg, grid), mg.fsdp_norm_bytes(cfg)
+    deeper_cfg = mg.fsdp_config("full", depth + 1)
+    deeper = mg.fsdp_bytes(deeper_cfg, grid)["total"] + mg.fsdp_norm_bytes(deeper_cfg)
+    gb = 1e9
+    print(f"main-fsdp: {cfg.name} at full width (d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"over {cfg.n_kv_heads} kv, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, untied head), "
+          f"depth cut {full.n_layers} -> {cfg.n_layers}: {rec['params'] / 1e9:.2f} B "
+          f"parameters; a 1 x 1 grid holds shards {rec['shards'] / gb:.1f} GB + AdamW moments "
+          f"{rec['moments'] / gb:.1f} GB + the gathered copy {rec['gathered'] / gb:.1f} GB + "
+          f"its gradients {rec['grads'] / gb:.1f} GB = {rec['total'] / gb:.1f} GB, and "
+          f"{norm_bytes / gb:.1f} GB for the largest gradient's norm, before activations; depth "
+          f"{depth + 1} would hold {deeper / gb:.1f} GB, past {mg.FSDP_SHARE} of the card's "
+          f"{card / gb:.1f} GB; the unsharded make_train_step holds at least 28 bytes "
+          f"per parameter ({28 * rec['params'] / gb:.1f} GB: its functional AdamW keeps the old "
+          f"and new moments, float32 and clipped gradients and the updates at once)")
+    for mod in mods.values():
+        mod.launches = 0
+    r = mg.fsdp_train(ctx, grid, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.synchronize()
+    launches = {name: mod.launches for name, mod in mods.items()}
+    print("main-fsdp: kernel launches " + json.dumps(launches))
+    check(all(v == 0 for v in launches.values()),
+          f"main-fsdp: a kernel without a backward was launched: {launches}")
+    print(f"main-fsdp: train {cfg.name} ({cfg.n_layers} layers) on a 1 x 1 grid, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: {r['s_per_step'][-1]:.4f} s/step (the first step "
+          f"{r['s_per_step'][0]:.4f} s); peak memory {r['peak_bytes'] / 2**30:.2f} GiB; loss "
+          + " -> ".join(f"{x:.4f}" for x in r["losses"])
+          + f"; the first against loss_fn on the unsharded model {r['loss_fn_first']:.6f}, "
+          f"bitwise {r['first_bitwise']}")
+    torch.cuda.empty_cache()
+    cmp = mg.fsdp_vs_unsharded(ctx, grid, mg.fsdp_config("smoke"), TRAIN_BATCH, TRAIN_SEQ)
+    print(f"main-fsdp float32 ({cmp['arch']}, 1 x 1): {mg.FSDP_STEPS} sharded steps vs "
+          f"make_train_step on the card: loss {cmp['losses']} vs {cmp['unsharded_losses']}, "
+          "max |d| over the loss, parameters and moments "
+          f"{max(cmp['loss_err'], cmp['max_abs_err']):.3g} (bound 2e-5 + 2e-5 |x|), bitwise "
+          f"{cmp['bitwise']}")
+    torch.cuda.empty_cache()
+    return launches, {"train": r, "vs_unsharded": cmp}
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the LM path.
 # ---------------------------------------------------------------------------
@@ -3260,8 +3330,8 @@ def serve_scout(torch, label: str) -> dict:
     loads = []
     inner = layers.moe_apply
 
-    def recording(p, c, x):
-        y, m = inner(p, c, x)
+    def recording(p, c, x, **kw):
+        y, m = inner(p, c, x, **kw)
         loads.append(m["expert_load"])
         return y, m
 
@@ -3800,6 +3870,12 @@ def run() -> int:
     train_launches, train_readings = run_train(torch, mods, ctx)
     train_readings["phase_s"] = time.perf_counter() - t0
     print("main-train: " + json.dumps(train_readings))
+
+    # 3h. the spec-placed FSDP/TP train step on a 1 x 1 grid -----------------
+    t0 = time.perf_counter()
+    fsdp_launches, fsdp_readings = run_fsdp(torch, mods, ctx)
+    fsdp_readings["phase_s"] = time.perf_counter() - t0
+    print("main-fsdp: " + json.dumps(fsdp_readings))
     dist.destroy_process_group()
 
     # 4. the LM path through the port's launcher -----------------------------
@@ -3860,7 +3936,8 @@ def run() -> int:
     # each path's launches, counted from 0 around its run (rbf_gram: on none)
     by_path = {"field": launches, "stream": stream_launches, "churn": churn_launches,
                "faults": fault_launches, "daemon": daemon_launches, "prune": prune_launches,
-               "sharded": sharded_launches, "train": train_launches, "lm": lm_launches,
+               "sharded": sharded_launches, "train": train_launches, "fsdp": fsdp_launches,
+               "lm": lm_launches,
                "dense": dense_launches, "moe": moe_launches} | later
 
     # 5. report --------------------------------------------------------------

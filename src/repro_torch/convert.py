@@ -89,25 +89,70 @@ def _tensor(v, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(a, device=dev)
 
 
+# an SSM mixer's leaves: the port's name -> the reference's key under ``ssm``
+SSM_KEYS = {"in_proj": "in_proj.w", "conv_w": "conv_w", "conv_b": "conv_b", "A_log": "A_log",
+            "D": "D", "dt_bias": "dt_bias", "norm_scale": "norm_scale",
+            "out_proj": "out_proj.w"}
+
+# the leaves whose layout is not the reference's: axis i of the port's leaf
+# is the reference's axis ``LAYOUTS[name][i]``, None a new axis of length 1
+# (the conv weight: ``F.conv1d``'s (C, 1, K) from the reference's (K, C))
+LAYOUTS = {"conv_w": (1, None, 0)}
+
+
+def to_port_layout(x: torch.Tensor, layout: tuple | None) -> torch.Tensor:
+    """``x`` in the reference's layout, laid out as the port holds it."""
+    if layout is None:
+        return x
+    y = x.permute(*(a for a in layout if a is not None))
+    for i, a in enumerate(layout):
+        if a is None:
+            y = y.unsqueeze(i)
+    return y.contiguous()
+
+
+def _slot(cfg: ModelConfig, i: int) -> tuple[int, int]:
+    """Decoder layer ``i``'s (slot, block): the reference stacks it as slot
+    ``i % block_len`` of block ``i // block_len``."""
+    return i % cfg.block_len, i // cfg.block_len
+
+
+def reference_leaf(name: str, cfg: ModelConfig) -> tuple[str, int | None, tuple | None]:
+    """(the reference's dotted key, the index on its stacked layer axis or
+    None, the port's layout or None) of the port's parameter ``name``.
+
+    ``layers.{i}.X`` is ``blocks.layer{i % block_len}.X`` at block
+    ``i // block_len``, ``enc_layers.{i}.X`` / ``dec_layers.{i}.X`` are
+    ``enc_layers.X`` / ``dec_layers.X`` at ``i``, an SSM leaf takes its
+    key from ``SSM_KEYS``; every other name is the reference's key.
+    """
+    root, _, rest = name.partition(".")
+    index = None
+    if root == "layers":
+        i, _, rest = rest.partition(".")
+        slot, index = _slot(cfg, int(i))
+        root = f"blocks.layer{slot}"
+    elif root in ("enc_layers", "dec_layers"):
+        i, _, rest = rest.partition(".")
+        index = int(i)
+    layout = None
+    if rest.startswith("ssm."):
+        leaf = rest[len("ssm."):]
+        rest, layout = "ssm." + SSM_KEYS[leaf], LAYOUTS.get(leaf)
+    return (f"{root}.{rest}" if rest else root), index, layout
+
+
 def ssm_mixer_from_numpy(tree: dict, *, device: str | torch.device = "cuda") -> S.SSMMixer:
     """One mixer's ``SSMMixer`` on ``device`` from the reference's ``ssm_init``
-    tree (``in_proj.w``, ``conv_w``, ...) read out as numpy.
-
-    The conv weight turns from the reference's (K, C) into ``F.conv1d``'s
-    (C, 1, K); nothing else is transposed.
+    tree (``in_proj.w``, ``conv_w``, ...) read out as numpy: the leaves of
+    ``SSM_KEYS``, in the port's ``LAYOUTS`` (the conv weight turns from the
+    reference's (K, C) into ``F.conv1d``'s (C, 1, K); nothing else is
+    transposed).
     """
     dev = _device.resolve(device)
     flat = _flatten(tree)
-    return S.SSMMixer(
-        in_proj=_tensor(flat["in_proj.w"], dev),
-        conv_w=_tensor(flat["conv_w"], dev).T.contiguous()[:, None, :],
-        conv_b=_tensor(flat["conv_b"], dev),
-        A_log=_tensor(flat["A_log"], dev),
-        D=_tensor(flat["D"], dev),
-        dt_bias=_tensor(flat["dt_bias"], dev),
-        norm_scale=_tensor(flat["norm_scale"], dev),
-        out_proj=_tensor(flat["out_proj.w"], dev),
-    )
+    return S.SSMMixer(**{name: to_port_layout(_tensor(flat[key], dev), LAYOUTS.get(name))
+                         for name, key in SSM_KEYS.items()})
 
 
 def _dense(flat: dict, prefix: str, dev: torch.device) -> L.Dense:
@@ -203,8 +248,10 @@ def lm_params_from_numpy(
     dev = _device.resolve(device)
     flat = _flatten(tree)
     slots = [_unstack(flat, f"blocks.layer{j}.", cfg.n_blocks) for j in range(cfg.block_len)]
-    layers = [_layer(slots[i % cfg.block_len][i // cfg.block_len], cfg, i, dev)
-              for i in range(cfg.n_layers)]
+    layers = []
+    for i in range(cfg.n_layers):
+        slot, block = _slot(cfg, i)
+        layers.append(_layer(slots[slot][block], cfg, i, dev))
     head = flat.get("lm_head")
     return T.Decoder(_tensor(flat["embed"], dev), _norm(flat, "final_norm", dev), layers,
                      None if head is None else _tensor(head, dev))

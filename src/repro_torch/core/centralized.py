@@ -50,3 +50,10 @@ def predict(model: KRRModel, xq, *, use_kernel: bool = False) -> torch.Tensor:
 
         return kernel_matvec(xq, model.anchors, model.coef, gamma=model.kernel.gamma)
     return model.kernel(xq, model.anchors) @ model.coef
+
+
+def mse(model: KRRModel, xq, yq, **kw) -> torch.Tensor:
+    """Mean squared error of ``predict(model, xq, **kw)`` against ``yq``."""
+    pred = predict(model, xq, **kw)
+    yq = torch.as_tensor(yq, dtype=pred.dtype, device=pred.device)
+    return torch.mean((pred - yq) ** 2)

@@ -192,6 +192,20 @@ def knn_select_valid(
     return cand.gather(1, top[:, :k]), torch.isfinite(vals[:, :k])
 
 
+def knn_select(
+    plan: ServingPlan,
+    positions: torch.Tensor,
+    xq: torch.Tensor,
+    k: int,
+    alive: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """(Q, k) ids of each query's k nearest sensors via the cell plan: the
+    ids column of ``knn_select_valid``.  Ties break toward the lower sensor
+    id; where fewer than k live candidates exist the tail ids are dead or
+    padded rows (``knn_select_valid``'s validity marks them)."""
+    return knn_select_valid(plan, positions, xq, k, alive)[0]
+
+
 def _eval_selected(
     kernel, nbr_pos, nbr_mask, coef, sel, valid, xq, k: int,
     compute_dtype: torch.dtype | None = None,

@@ -89,6 +89,14 @@ def all_gather_into(out: torch.Tensor, x: torch.Tensor, group=None) -> torch.Ten
     return out
 
 
+def reduce_scatter_into(out: torch.Tensor, x: torch.Tensor, group=None) -> torch.Tensor:
+    """``out`` <- this rank's block (of ``world`` along dim 0) of the sum of
+    every rank's ``x``."""
+    scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+    scatter(out, x.contiguous(), group=group)
+    return out
+
+
 def spawn(fn, world: int, *args, device: str | torch.device = "cuda") -> list:
     """Run ``fn(ctx, *args)`` on ``world`` new local processes, one per rank,
     in one group; returns each rank's result, in rank order.

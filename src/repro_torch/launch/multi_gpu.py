@@ -20,6 +20,15 @@ Every rank checks, and rank 0 prints, at chip_smoke's geometries:
      ranks), ``--steps`` steps per dp_mode: the loss falls, all-reduce
      replicas stay bitwise equal (``consensus_sq`` exactly 0), gossip
      reports its disagreement;
+  5. the spec-placed FSDP/TP step (``sharding.steps``) on a data x model
+     grid (2 x 2 on four ranks; ``fsdp_grid``): nemotron-4-15b's smoke
+     variant in float32, two AdamW steps against the unsharded
+     ``make_train_step`` on the whole batch 8 x 128 on every rank (loss,
+     this rank's slices of the parameters and moments: 2e-5 absolute + 2e-5
+     relative; whether they are bitwise equal), then nemotron-4-15b at
+     full width with its depth cut to what fits the card (``fsdp_depth``;
+     ``--variant full``), two timed steps, its first loss against
+     ``loss_fn`` on the unsharded model;
 and times the sharded call beside ``colored_sweep`` (in turns), the
 all-gathers, the gossip collectives over the model's parameters and the
 train step.  One JSON line closes; any failed check raises.
@@ -28,6 +37,7 @@ train step.  One JSON line closes; any failed check raises.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -39,9 +49,16 @@ from ..configs import get_config
 from ..core import (colored_sweep, consensus, field_view, init_state, sharded_sweep)
 from ..data import synthetic_lm_stream
 from ..kernels import _build
-from ..models import init_params
+from ..models import init_params, loss_fn, make_train_step
+from ..optim import adamw, cosine_warmup
+from ..sharding import param_pspecs, param_shapes, steps as sharded
 from . import serve
 from .train import build
+
+FSDP_ARCH = "nemotron-4-15b"
+FSDP_SHARE = 0.9  # of the card's memory that the reckoned cut may fill
+FSDP_STEPS = 2
+FSDP_TOL = (2e-5, 2e-5)  # absolute, relative
 
 
 def _check(cond: bool, what: str) -> None:
@@ -186,13 +203,163 @@ def _train_checks(ctx, args) -> dict:
     return out
 
 
+def fsdp_grid(world: int) -> tuple[int, int]:
+    """(data, model) of the FSDP phase's grid: 2 x 2 on four ranks, 1 x 1 on one."""
+    model = 2 if world % 2 == 0 else 1
+    return world // model, model
+
+
+def fsdp_config(variant: str, depth: int = 2):
+    """nemotron-4-15b: its smoke variant, or full width cut to ``depth`` layers."""
+    if variant == "full":
+        return dataclasses.replace(get_config(FSDP_ARCH), n_layers=depth)
+    return get_config(FSDP_ARCH, variant="smoke")
+
+
+def fsdp_bytes(cfg, grid: sharded.Grid) -> dict:
+    """This rank's bytes in the sharded step, counted from the shapes: its
+    shards (the model's dtype), the AdamW moments of its shards (float32),
+    the gathered full copy and its full gradients (the model's dtype; the
+    MoE router float32 is counted at the model's dtype)."""
+    item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    shapes = param_shapes(cfg)
+    specs = param_pspecs(cfg, shapes, grid)
+    full = sum(int(np.prod(s)) for s in shapes.values())
+    local = 0
+    for name, shape in shapes.items():
+        parts = int(np.prod([grid.shape[a] for _, a in sharded.split_dims(specs[name], grid)]))
+        local += int(np.prod(shape)) // parts
+    return {"params": full, "local_params": local, "shards": local * item,
+            "moments": local * 8, "gathered": full * item, "grads": full * item,
+            "total": local * (item + 8) + 2 * full * item}
+
+
+def fsdp_norm_bytes(cfg) -> int:
+    """The float32 copy and square of the largest gradient, for its norm."""
+    return 8 * max(int(np.prod(s)) for s in param_shapes(cfg).values())
+
+
+def fsdp_depth(grid: sharded.Grid, card_bytes: int) -> int:
+    """The deepest full-width cut of nemotron-4-15b whose reckoned bytes on
+    this rank (``fsdp_bytes`` and ``fsdp_norm_bytes``) fill at most
+    ``FSDP_SHARE`` of ``card_bytes``; 0 where not even one layer fits."""
+    full = get_config(FSDP_ARCH)
+    depth = 0
+    while depth < full.n_layers:
+        cfg = fsdp_config("full", depth + 1)
+        if fsdp_bytes(cfg, grid)["total"] + fsdp_norm_bytes(cfg) > FSDP_SHARE * card_bytes:
+            break
+        depth += 1
+    return depth
+
+
+def _fsdp_batches(cfg, batch: int, seq: int, n: int, dev) -> list[dict]:
+    stream = synthetic_lm_stream(cfg.vocab_size, seq, batch, seed=0)
+    return [{k: torch.as_tensor(v, device=dev) for k, v in stream.batch_at(i).items()}
+            for i in range(n)]
+
+
+def _fsdp_optimizer():
+    return adamw(cosine_warmup(3e-4, 1, 10))
+
+
+def fsdp_vs_unsharded(ctx, grid: sharded.Grid, cfg, batch: int = 8, seq: int = 128) -> dict:
+    """``FSDP_STEPS`` sharded steps against the unsharded ``make_train_step``
+    on the whole batch (both from ``init_params(cfg, 0)``): the losses, and
+    this rank's slices of the parameters and moments, within ``FSDP_TOL``."""
+    batches = _fsdp_batches(cfg, batch, seq, FSDP_STEPS, ctx.device)
+    opt = _fsdp_optimizer()
+    ref = init_params(cfg, 0, device=ctx.device)
+    ref_state = opt.init(ref)
+    ref_step = make_train_step(cfg, opt, dp_mode="none")
+    want = []
+    for b in batches:
+        ref, ref_state, m = ref_step(ref, ref_state, b)
+        want.append(float(m["loss"]))
+    params = init_params(cfg, 0, device=ctx.device)
+    specs = param_pspecs(cfg, params, grid)
+    shards, state = sharded.place(params, opt.init(params), specs, grid)
+    step = sharded.build_train(cfg, grid, opt)
+    got = []
+    for b in batches:
+        shards, state, m = step(shards, state, b)
+        got.append(float(m["loss"]))
+    leaves = dict(ref.named_parameters())
+    err, excess, bitwise = 0.0, -1.0, got == want
+    for i, (name, x) in enumerate(shards.items()):
+        for have, full in ((x, leaves[name]), (state["mu"][i], ref_state["mu"][i]),
+                           (state["nu"][i], ref_state["nu"][i])):
+            part = sharded.local_slice(full, specs[name], grid)
+            d = (have.double() - part.double()).abs()
+            err = max(err, float(d.max()))
+            excess = max(excess, float((d - FSDP_TOL[0] - FSDP_TOL[1] * part.double().abs()).max()))
+            bitwise = bitwise and bool(torch.equal(have, part))
+    loss_err = max(abs(a - b) for a, b in zip(got, want))
+    _check(all(abs(a - b) <= FSDP_TOL[0] + FSDP_TOL[1] * abs(b) for a, b in zip(got, want)),
+           f"fsdp: sharded losses {got} vs unsharded {want}")
+    _check(excess <= 0.0, f"fsdp: a slice differs from the unsharded step by {err}")
+    return dict(arch=cfg.name, dtype=cfg.dtype, grid=[grid.shape["data"], grid.shape["model"]],
+                losses=got, unsharded_losses=want, loss_err=loss_err, max_abs_err=err,
+                bitwise=bitwise)
+
+
+def fsdp_train(ctx, grid: sharded.Grid, cfg, batch: int = 8, seq: int = 128) -> dict:
+    """``FSDP_STEPS`` timed sharded steps of ``cfg`` (random weights from seed
+    0): s/step, the peak memory, the losses (finite), the first against
+    ``loss_fn`` of the unsharded model on the whole batch (2e-5)."""
+    batches = _fsdp_batches(cfg, batch, seq, FSDP_STEPS, ctx.device)
+    opt = _fsdp_optimizer()
+    if ctx.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(ctx.device)
+    params = init_params(cfg, 0, device=ctx.device)
+    with torch.no_grad():
+        first = float(loss_fn(cfg, params, batches[0])[0])
+    specs = param_pspecs(cfg, params, grid)
+    shards, _ = sharded.place(params, {}, specs, grid)
+    del params
+    # AdamW's state starts at zero: made for the shards, the full moments
+    # (8 bytes per parameter) never exist on a rank
+    state = opt.init(list(shards.values()))
+    step = sharded.build_train(cfg, grid, opt)
+    losses, times = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        shards, state, m = step(shards, state, b)
+        losses.append(float(m["loss"]))  # one host read per step
+        times.append(time.perf_counter() - t0)
+    _check(all(np.isfinite(losses)), f"fsdp: non-finite loss {losses}")
+    _check(abs(losses[0] - first) <= FSDP_TOL[0] + FSDP_TOL[1] * abs(first),
+           f"fsdp: the first step's loss {losses[0]} vs loss_fn {first}")
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype,
+               grid=[grid.shape["data"], grid.shape["model"]], losses=losses,
+               loss_fn_first=first, first_bitwise=losses[0] == first, s_per_step=times,
+               reckoned=fsdp_bytes(cfg, grid))
+    if ctx.device.type == "cuda":
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(ctx.device)
+    del shards, state, step
+    return out
+
+
+def _fsdp_checks(ctx, args) -> dict:
+    grid = sharded.make_grid(ctx, *fsdp_grid(ctx.world))
+    out = {"vs_unsharded": fsdp_vs_unsharded(ctx, grid, get_config(FSDP_ARCH, variant="smoke"),
+                                             args.batch, args.seq)}
+    depth = 2
+    if ctx.device.type == "cuda":
+        depth = fsdp_depth(grid, torch.cuda.get_device_properties(ctx.device).total_memory)
+        _check(depth >= 1, "fsdp: no layer of the full-width model fits the card")
+    out["train"] = fsdp_train(ctx, grid, fsdp_config(args.variant, depth), args.batch, args.seq)
+    return out
+
+
 def run(ctx: distributed.RankContext, args: argparse.Namespace) -> dict:
     out = {"world": ctx.world, "device": str(ctx.device)}
     if ctx.device.type == "cuda":
         out["kind"] = torch.cuda.get_device_name(ctx.device)
     for name, fn in (("fields", lambda: _field_checks(ctx, args)),
                      ("gossip", lambda: _gossip_checks(ctx)),
-                     ("train", lambda: _train_checks(ctx, args))):
+                     ("train", lambda: _train_checks(ctx, args)),
+                     ("fsdp", lambda: _fsdp_checks(ctx, args))):
         t0 = time.perf_counter()
         out[name] = fn()
         out[name]["phase_s"] = time.perf_counter() - t0

@@ -396,7 +396,7 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).to(torch.float32)
 
 
-def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor
+def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor, *, reduce=None
               ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """x: (B, S, d) -> (y, {"aux_loss", "z_loss", "expert_load"}), the
     reference's dense one-hot dispatch with static shapes and no host read.
@@ -411,6 +411,12 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor
     past C is dropped.  ``dispatch`` is one-hot in the model's dtype,
     ``combine`` float32 and cast to it before the last product; the shared
     expert is added after.
+
+    ``reduce`` (None: this call's tokens are the whole batch) maps each of
+    the router's token means (the mean probabilities and top-1 shares of the
+    aux loss, and the z loss) to the mean over the whole batch, where the
+    batch is split over ranks: the aux loss is a product of two means, so
+    they are reduced before the product.
     """
     b, s, d = x.shape
     e, k, dt = cfg.n_experts, cfg.top_k, cdtype(cfg)
@@ -462,16 +468,21 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor
     # load-balance aux (Switch/GShard): E * sum_e f_e * P_e
     me = probs.mean(dim=(0, 1))  # (E,)
     top1 = _one_hot(topi[..., 0], e).mean(dim=(0, 1))
+    if reduce is not None:
+        me, top1 = reduce(me), reduce(top1)
     aux = e * torch.sum(top1 * me)
     z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+    if reduce is not None:
+        z = reduce(z)
     return y, {"aux_loss": aux, "z_loss": z, "expert_load": counts.sum(0)}
 
 
-def ffn_apply(p: MLP | MoE, cfg: ModelConfig, x: torch.Tensor, *, is_moe: bool
-              ) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None]:
+def ffn_apply(p: MLP | MoE, cfg: ModelConfig, x: torch.Tensor, *, is_moe: bool,
+              moe_reduce=None) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None]:
     """The MoE layer with its metrics, or the MLP with None: the reference
     gives a dense layer zero metrics, which add nothing to a sum over layers
-    (``transformer.decoder_forward`` skips them instead)."""
+    (``transformer.decoder_forward`` skips them instead).  ``moe_reduce`` is
+    ``moe_apply``'s ``reduce``."""
     if is_moe:
-        return moe_apply(p, cfg, x)
+        return moe_apply(p, cfg, x, reduce=moe_reduce)
     return mlp(p, cfg, x), None

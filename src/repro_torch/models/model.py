@@ -51,13 +51,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     return T.init_decoder_params(gen, cfg)
 
 
-def forward_logits(cfg: ModelConfig, params: Params, batch: dict):
+def forward_logits(cfg: ModelConfig, params: Params, batch: dict, *, moe_reduce=None):
     """(logits (B, S, V), metrics).  With ``patch_embeds`` the logits are
-    those of the text positions (the patch prefix's are sliced off)."""
+    those of the text positions (the patch prefix's are sliced off).
+    ``moe_reduce``: ``layers.moe_apply``'s ``reduce`` (the encoder-decoder
+    has no MoE layer)."""
     if cfg.is_encoder_decoder:
         return ED.encdec_forward(params, cfg, batch["tokens"], batch["frames"])
     logits, metrics = T.decoder_forward(params, cfg, batch["tokens"],
-                                        patch_embeds=batch.get("patch_embeds"))
+                                        patch_embeds=batch.get("patch_embeds"),
+                                        moe_reduce=moe_reduce)
     if cfg.n_patches and "patch_embeds" in batch:
         logits = logits[:, cfg.n_patches:]  # align back to the text positions
     return logits, metrics
@@ -72,11 +75,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor
     return ce.sum() / torch.clamp(mask.sum(), min=1.0)
 
 
-def loss_fn(cfg: ModelConfig, params: Params, batch: dict):
+def loss_fn(cfg: ModelConfig, params: Params, batch: dict, *, moe_reduce=None):
     """(loss, {"loss", "ce"}): the masked cross-entropy, plus the router
     terms (and their metrics) where ``cfg.n_experts > 0``, as the reference
-    forms it."""
-    logits, m = forward_logits(cfg, params, batch)
+    forms it.  ``moe_reduce``: see ``layers.moe_apply``."""
+    logits, m = forward_logits(cfg, params, batch, moe_reduce=moe_reduce)
     ce = cross_entropy(logits, batch["labels"], batch["mask"])
     metrics = {"loss": ce, "ce": ce}
     if cfg.n_experts:

@@ -143,14 +143,16 @@ def _head(params: Decoder, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return L.apply_norm(params.final_norm, x) @ head
 
 
-def _ffn(layer: MixerLayer | AttnLayer, cfg: ModelConfig, i: int, x: torch.Tensor):
+def _ffn(layer: MixerLayer | AttnLayer, cfg: ModelConfig, i: int, x: torch.Tensor,
+         moe_reduce=None):
     """x + FFN(norm2(x)), and the MoE layer's metrics (None for an MLP); x
     and None where the stack has no FFN (mamba2)."""
     if not cfg.has_ffn:
         return x, None
     is_moe = cfg.layer_is_moe(i)
     h, metrics = L.ffn_apply(layer.moe if is_moe else layer.mlp, cfg,
-                             L.apply_norm(layer.norm2, x), is_moe=is_moe)
+                             L.apply_norm(layer.norm2, x), is_moe=is_moe,
+                             moe_reduce=moe_reduce)
     return x + h, metrics
 
 
@@ -162,11 +164,12 @@ def _zero_metrics(cfg: ModelConfig, device) -> dict[str, torch.Tensor]:
 
 def decoder_forward(
     params: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
-    patch_embeds: torch.Tensor | None = None,
+    patch_embeds: torch.Tensor | None = None, moe_reduce=None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Returns (logits (B, S_total, V), the MoE metrics summed over layers:
     zero for a stack without MoE layers).  S_total counts the VLM's patch
-    prefix where ``patch_embeds`` is given."""
+    prefix where ``patch_embeds`` is given.  ``moe_reduce`` is each MoE
+    layer's ``layers.moe_apply`` ``reduce``."""
     x = embed_inputs(params, cfg, tokens, patch_embeds)
     b, s, _ = x.shape
     angles = _angles(cfg, b, s, x.device)
@@ -177,7 +180,7 @@ def decoder_forward(
             h = S.ssm_forward(layer.ssm, cfg, h)
         else:
             h = L.attn_forward(layer.attn, cfg, h, angles, window=cfg.sliding_window)
-        x, m = _ffn(layer, cfg, i, x + h)
+        x, m = _ffn(layer, cfg, i, x + h, moe_reduce)
         if m is not None:
             acc = {key: acc[key] + m[key] for key in acc}
     return _head(params, cfg, x), acc

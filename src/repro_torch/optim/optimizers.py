@@ -8,9 +8,11 @@ Functional, as in the reference: an ``Optimizer`` is (init, update) with
     params           = apply_updates(params, updates)
 
 over the trees of ``repro_torch.tree`` (a module's parameters, or lists /
-dicts of tensors).  Moments are float32 lists aligned with the parameters'
-leaves; ``state["step"]`` is a 0-d int32 tensor on the CPU, so the
-schedule never reads the device.  The formulas are the reference's, not
+dicts of tensors).  ``update`` takes ``norm=``, the gradients' global norm
+where the caller computes it (over slices of the gradients; AdamW clips
+to it, SGD and Lion do not clip).  Moments are float32 lists aligned with
+the parameters' leaves; ``state["step"]`` is a 0-d int32 tensor on the
+CPU, so the schedule never reads the device.  The formulas are the reference's, not
 ``torch.optim``'s: the gradient is cast to float32 and clipped to a global
 norm before the moments, the update (decay included, on every leaf) is
 formed in float32 and added as ``(p + u).to(p.dtype)``.
@@ -42,8 +44,12 @@ def global_norm(tree: Tree) -> torch.Tensor:
     return torch.sqrt(torch.as_tensor(total))
 
 
-def clip_by_global_norm(tree: Tree, max_norm: float) -> tuple[Tree, torch.Tensor]:
-    norm = global_norm(tree)
+def clip_by_global_norm(tree: Tree, max_norm: float, norm: torch.Tensor | None = None
+                        ) -> tuple[Tree, torch.Tensor]:
+    """``tree`` scaled to a global norm of at most ``max_norm``; ``norm`` is
+    ``global_norm(tree)`` unless the caller gives it (the norm of a tree
+    whose leaves are slices of the gradients)."""
+    norm = global_norm(tree) if norm is None else norm
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return T.tree_map(lambda x: x * scale, tree), norm
 
@@ -79,10 +85,10 @@ def adamw(
         return {"step": torch.zeros((), dtype=torch.int32), "mu": _zeros(params),
                 "nu": _zeros(params)}
 
-    def update(grads, state, params):
+    def update(grads, state, params, *, norm=None):
         grads = _f32(grads)
         if clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, clip_norm)
+            grads, _ = clip_by_global_norm(grads, clip_norm, norm)
         step = state["step"] + 1
         lr = float(schedule(step))
         mu = [b1 * m + (1 - b1) * g for m, g in zip(state["mu"], grads)]
@@ -103,8 +109,8 @@ def sgd(schedule: Schedule, *, momentum: float = 0.9, nesterov: bool = False) ->
     def init(params):
         return {"step": torch.zeros((), dtype=torch.int32), "mom": _zeros(params)}
 
-    def update(grads, state, params):
-        del params
+    def update(grads, state, params, *, norm=None):
+        del params, norm
         step = state["step"] + 1
         lr = float(schedule(step))
         grads = _f32(grads)
@@ -130,7 +136,8 @@ def lion(
     def init(params):
         return {"step": torch.zeros((), dtype=torch.int32), "mu": _zeros(params)}
 
-    def update(grads, state, params):
+    def update(grads, state, params, *, norm=None):
+        del norm
         step = state["step"] + 1
         lr = float(schedule(step))
         grads = _f32(grads)
