@@ -162,6 +162,25 @@ Phases, one line or more each; any failure raises and exits non-zero:
              then the smoke variant in float32, two steps against
              ``make_train_step`` on the card (loss, parameters and moments
              2e-5 absolute + 2e-5 relative; whether bitwise);
+  3i. main-shard-serve sharded prefill and decode (``repro_torch.sharding.
+             serve``: the cache placed by ``cache_pspecs``, each layer
+             gathered on use) over the group of one as a 1 x 1 grid:
+             smollm-135m at full width and depth (bf16, seed 0), a 4 x 512
+             prompt and 32 greedy tokens beside the unsharded prefill and
+             decode_step (turns: unsharded, sharded, sharded, unsharded;
+             each after a warm-up prefill and step, ``multi_gpu.
+             serve_times``), tokens and logits
+             bitwise equal, ``greedy_decode``'s tokens too; prefill s,
+             decode tok/s and the peak memory beside ``serve.reckon``;
+             counters set to 0 before and read after (all 0); then the
+             four-way length-split and heads-split decode attention of one
+             full-width layer (smollm-135m's 9 heads over 3 kv heads and
+             qwen1.5-32b's 40 over 40, L = 544) through in-process
+             callables against ``_sdpa`` (float32 2e-5 absolute + 2e-5
+             relative; the bf16 difference printed) and
+             jamba-1.5-large-398b's full-width SSM decode step (256 heads,
+             C = 16,640) split four ways by heads and channels against
+             ``ssm_decode`` (float32, the same bound);
   4. main-lm the port's launcher in LM mode: mamba2-370m at full width in
              its own bf16, random weights from seed 0, a 4 x 512 prompt
              and 32 greedy tokens, with every launch counter set to 0
@@ -233,7 +252,8 @@ Phases, one line or more each; any failure raises and exits non-zero:
              launcher's tokens; 10 training steps with frames, the loss
              falling; counters 0;
   5. report  the kernels JSON line (``launches``: the sum over the field,
-             stream, churn, faults, daemon, prune, sharded, train, fsdp, LM, dense,
+             stream, churn, faults, daemon, prune, sharded, train, fsdp,
+             shard_serve, LM, dense,
              MoE, hybrid, VLM and audio paths' runs, each path's count beside
              it; ssd_intra's row also holds its H = 256 times), the card's
              name and power limit, and the final {"ok": true, ...} line.
@@ -2965,6 +2985,182 @@ def run_fsdp(torch, mods, ctx) -> tuple[dict, dict]:
     return launches, {"train": r, "vs_unsharded": cmp}
 
 
+SERVE_ARCH = "smollm-135m"
+SERVE_B, SERVE_PROMPT, SERVE_GEN = 4, 512, 32  # the LM launcher's geometry
+SPLIT_L, SPLIT_PARTS, SPLIT_TOL = 544, 4, 2e-5
+
+
+def check_split_attention(torch, arch: str, split: str, dtype) -> float:
+    """One full-width decode attention (B = 4, L = SPLIT_L slots, the last 3
+    empty) split SPLIT_PARTS ways by ``split`` ("length" or "heads") through
+    ``serve.in_process``, against ``layers._sdpa``: max |d|, and the bound's
+    excess in float32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    from repro_torch.sharding import serve as sserve
+
+    cfg = get_config(arch)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b, n = SERVE_B, SPLIT_PARTS
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q = draw(b, 1, cfg.n_heads, cfg.hd)
+    k, v = draw(b, SPLIT_L, cfg.n_kv_heads, cfg.hd), draw(b, SPLIT_L, cfg.n_kv_heads, cfg.hd)
+    valid = (torch.arange(SPLIT_L, device="cuda") < SPLIT_L - 3).expand(b, 1, SPLIT_L)
+    want = layers._sdpa(q, k, v, valid, cfg)
+    if split == "length":
+        parts = list(zip(k.chunk(n, 1), v.chunk(n, 1), valid.chunk(n, 2)))
+        outs = sserve.in_process(
+            lambda comm, kp, vp, mp: sserve.length_split_sdpa(q, kp, vp, mp, cfg, comm), parts)
+    else:
+        parts = list(zip(q.chunk(n, 2), k.chunk(n, 2), v.chunk(n, 2)))
+        outs = sserve.in_process(
+            lambda comm, qp, kp, vp: sserve.heads_split_sdpa(qp, kp, vp, valid, cfg, comm), parts)
+    check(all(o.shape == want.shape and torch.equal(o, outs[0]) for o in outs),
+          f"main-shard-serve: the {split} split's parts disagree ({arch})")
+    return max_err(outs[0], want), excess(outs[0], want, SPLIT_TOL)
+
+
+def check_ssm_split(torch) -> dict:
+    """jamba-1.5-large-398b's full-width Mamba2 decode step in float32 (B =
+    4, a random state and conv tail), split SPLIT_PARTS ways by heads and by
+    channels through ``serve.in_process``, against ``ssm.ssm_decode``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.sharding import serve as sserve
+
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b"), dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    p = ssm.ssm_init(gen, cfg)
+    u = torch.randn((SERVE_B, 1, cfg.d_model), generator=gen, device="cuda")
+    cache = ssm.init_ssm_cache(cfg, SERVE_B, torch.float32, "cuda")
+    for t in cache.values():
+        t.normal_(generator=gen)
+    want_y, want = ssm.ssm_decode(p, cfg, u, {k: t.clone() for k, t in cache.items()})
+    n, h, c = SPLIT_PARTS, cfg.ssm_heads, cache["conv"].shape[2]
+    parts = []
+    for r in range(n):
+        hs, cs = slice(r * h // n, (r + 1) * h // n), slice(r * c // n, (r + 1) * c // n)
+        parts.append(({"state": cache["state"][:, hs], "conv": cache["conv"][..., cs]}, hs, cs))
+    outs = sserve.in_process(
+        lambda comm, part, hs, cs: ssm.ssm_decode(p, cfg, u, part, comm=comm, heads=hs,
+                                                  channels=cs), parts)
+    got = {"y": outs[0][0], "state": torch.cat([o["state"] for _, o in outs], 1),
+           "conv": torch.cat([o["conv"] for _, o in outs], 2)}
+    ref = {"y": want_y, "state": want["state"], "conv": want["conv"]}
+    out = {k: (max_err(got[k], ref[k]), excess(got[k], ref[k], SPLIT_TOL)) for k in got}
+    out["shape"] = dict(heads=h, channels=c, d_model=cfg.d_model)
+    del p
+    return out
+
+
+def run_shard_serve(torch, mods, ctx) -> tuple[dict, dict]:
+    """Sharded prefill and decode (``repro_torch.sharding.serve``) over the
+    NCCL group of one as a 1 x 1 grid: smollm-135m at full width and depth
+    (bf16, seed 0) beside the unsharded path, tokens and logits bitwise, with
+    the counters set to 0 before and read after (no kernel: all 0); then the
+    split attention at full width and the split SSM step, in one process."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.launch import multi_gpu as mg
+    from repro_torch.launch.serve import lm_cache_len
+    from repro_torch.sharding import param_pspecs
+    from repro_torch.sharding import serve as sserve
+    from repro_torch.sharding import steps as sharded
+
+    grid = sharded.make_grid(ctx, 1, 1)
+    cfg, dev = get_config(SERVE_ARCH), grid.device
+    check(cfg.dtype == "bfloat16" and cfg.n_layers == 30, "main-shard-serve: not the full model")
+    b, s0, gen = SERVE_B, SERVE_PROMPT, SERVE_GEN
+    max_seq = lm_cache_len(cfg, s0, gen)
+    rec = sserve.reckon(cfg, grid, b, max_seq)
+    for mod in mods.values():
+        mod.launches = 0
+    params = models.init_params(cfg, 0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s0), generator=g, device=dev)
+    shards, _ = sharded.place(params, {}, param_pspecs(cfg, params, grid), grid)
+    pre = sserve.build_prefill(cfg, grid, b, max_seq)
+    dec = sserve.build_decode(cfg, grid, b, max_seq, prefill=pre)
+    paths = {
+        "unsharded": (lambda p: models.prefill(cfg, params, {"tokens": p},
+                                               models.init_cache(cfg, b, max_seq, device=dev)),
+                      lambda t, c, i: models.decode_step(cfg, params, t, c, i)),
+        "sharded": (lambda p: pre(shards, {"tokens": p}, sserve.init_cache(cfg, grid, b, max_seq)),
+                    lambda t, c, i: dec(shards, t, c, i)),
+    }
+    runs = {"unsharded": [], "sharded": []}
+    peak = 0
+    for name in ("unsharded", "sharded", "sharded", "unsharded"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs[name].append(mg.serve_times(*paths[name], prompt, gen, dev))
+        if name == "sharded":
+            peak = max(peak, torch.cuda.max_memory_allocated())
+    greedy, _ = sserve.greedy_decode(cfg, grid, shards, prompt, gen, max_seq)
+    torch.cuda.synchronize()
+    launches = {name: mod.launches for name, mod in mods.items()}
+    print("main-shard-serve: kernel launches " + json.dumps(launches))
+    check(all(v == 0 for v in launches.values()),
+          f"main-shard-serve: a kernel of the port was launched: {launches}")
+    u, sh = runs["unsharded"][0], runs["sharded"][0]
+    logits_bitwise = all(torch.equal(x, y) for r in runs["sharded"] for x, y in
+                         zip(r["logits"], u["logits"]))
+    tokens_bitwise = all(torch.equal(r["tokens"], u["tokens"]) for r in runs["sharded"])
+    greedy_bitwise = bool(torch.equal(greedy, u["tokens"]))
+    check(all(bool(torch.isfinite(x).all()) for x in sh["logits"])
+          and sh["logits"][0].shape == (b, 1, cfg.vocab_size), "main-shard-serve: logits")
+    check(logits_bitwise and tokens_bitwise and greedy_bitwise,
+          "main-shard-serve: the 1 x 1 grid differs from the unsharded path: logits "
+          f"{logits_bitwise}, tokens {tokens_bitwise}, greedy_decode {greedy_bitwise}")
+    gib = 2**30
+    times = {name: [dict(prefill_s=r["prefill_s"], decode_s=r["decode_s"], tok_s=r["tok_s"])
+                    for r in rs] for name, rs in runs.items()}
+    print(f"main-shard-serve: {cfg.name} at full width and depth ({cfg.n_params() / 1e6:.1f}M "
+          f"params, bf16) on a 1 x 1 grid, {b} x {s0} prompt, {gen} tokens, a cache of "
+          f"{max_seq}: prefill " + " / ".join(f"{t['prefill_s']:.4f}" for t in
+                                                times["sharded"])
+          + " s, decode " + " / ".join(f"{t['tok_s']:.1f}" for t in times["sharded"])
+          + " tok/s; unsharded prefill " + " / ".join(f"{t['prefill_s']:.4f}" for t in
+                                                        times["unsharded"])
+          + " s, decode " + " / ".join(f"{t['tok_s']:.1f}" for t in times["unsharded"])
+          + f" tok/s; tokens and logits bitwise {logits_bitwise and tokens_bitwise}, "
+          f"greedy_decode's tokens bitwise {greedy_bitwise}")
+    print(f"main-shard-serve: peak memory {peak / gib:.3f} GiB; reckoned shards "
+          f"{rec['shards'] / gib:.3f} + gathered {rec['gathered'] / gib:.3f} + scratch layer "
+          f"{rec['scratch'] / gib:.3f} + cache part {rec['cache'] / gib:.3f} = "
+          f"{rec['total'] / gib:.3f} GiB before activations (all-gathered per step: "
+          f"{rec['gathered_per_step'] / gib:.3f} GiB)")
+    del params, shards, pre, dec, runs, paths
+    torch.cuda.empty_cache()
+    splits = {}
+    for arch, split in ((SERVE_ARCH, "length"), ("qwen1.5-32b", "length"),
+                        ("qwen1.5-32b", "heads")):
+        key = f"{arch} {split}"
+        err32, ex32 = check_split_attention(torch, arch, split, torch.float32)
+        err16, _ = check_split_attention(torch, arch, split, torch.bfloat16)
+        splits[key] = dict(float32=err32, excess=ex32, bfloat16=err16)
+        print(f"main-shard-serve: {arch} decode attention split {SPLIT_PARTS} ways by {split} "
+              f"(L = {SPLIT_L}) vs _sdpa: float32 max |d| {err32:.3g} (bound 2e-5 + 2e-5 |x|), "
+              f"bf16 max |d| {err16:.3g}")
+        check(ex32 <= SPLIT_TOL, f"main-shard-serve: {key} split attention differs: {err32}")
+    ssm_split = check_ssm_split(torch)
+    print(f"main-shard-serve: jamba-1.5-large-398b SSM decode split {SPLIT_PARTS} ways by "
+          f"{ssm_split['shape']['heads']} heads and {ssm_split['shape']['channels']} channels "
+          "vs ssm_decode, float32 max |d|: "
+          + ", ".join(f"{k} {v[0]:.3g}" for k, v in ssm_split.items() if k != "shape"))
+    check(all(v[1] <= SPLIT_TOL for k, v in ssm_split.items() if k != "shape"),
+          f"main-shard-serve: the split SSM step differs: {ssm_split}")
+    torch.cuda.empty_cache()
+    return launches, dict(arch=cfg.name, grid=[1, 1], batch=b, prompt=s0, gen=gen,
+                          max_seq=max_seq, times=times, peak_bytes=peak, reckoned=rec,
+                          bitwise=dict(logits=logits_bitwise, tokens=tokens_bitwise,
+                                       greedy_decode=greedy_bitwise),
+                          split_attention=splits, ssm_split=ssm_split)
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the LM path.
 # ---------------------------------------------------------------------------
@@ -3876,6 +4072,12 @@ def run() -> int:
     fsdp_launches, fsdp_readings = run_fsdp(torch, mods, ctx)
     fsdp_readings["phase_s"] = time.perf_counter() - t0
     print("main-fsdp: " + json.dumps(fsdp_readings))
+
+    # 3i. sharded prefill and decode on a 1 x 1 grid --------------------------
+    t0 = time.perf_counter()
+    serve_launches, serve_readings = run_shard_serve(torch, mods, ctx)
+    serve_readings["phase_s"] = time.perf_counter() - t0
+    print("main-shard-serve: " + json.dumps(serve_readings))
     dist.destroy_process_group()
 
     # 4. the LM path through the port's launcher -----------------------------
@@ -3937,7 +4139,7 @@ def run() -> int:
     by_path = {"field": launches, "stream": stream_launches, "churn": churn_launches,
                "faults": fault_launches, "daemon": daemon_launches, "prune": prune_launches,
                "sharded": sharded_launches, "train": train_launches, "fsdp": fsdp_launches,
-               "lm": lm_launches,
+               "shard_serve": serve_launches, "lm": lm_launches,
                "dense": dense_launches, "moe": moe_launches} | later
 
     # 5. report --------------------------------------------------------------

@@ -29,6 +29,21 @@ Every rank checks, and rank 0 prints, at chip_smoke's geometries:
      full width with its depth cut to what fits the card (``fsdp_depth``;
      ``--variant full``), two timed steps, its first loss against
      ``loss_fn`` on the unsharded model;
+  6. sharded prefill and decode (``sharding.serve``) on the grids 1 x W and,
+     for an even W > 2, 2 x W/2 (``serve_grids``): smollm-135m (3 kv heads:
+     the cache length is split) and qwen1.5-32b (40 kv heads: the heads
+     are split) at full width, depth cut so that the unsharded float32
+     model fills at most ``SERVE_SHARE`` of the card (``serve_depth``), in
+     float32: a --batch x --seq prompt and 4 teacher-forced decode steps
+     against the unsharded ``prefill`` / ``decode_step`` on the rank's own
+     card (the logits of its rows, 2e-5 absolute + 2e-5 relative, or, past
+     that bound, the float64 witness rule: against a float64 run of the same
+     weights the sharded error at most ``SERVE_WITNESS_FACTOR`` times the
+     unsharded float32 run's); then in
+     bf16, 4 x 512 prompts and 32 greedy tokens (the smoke variant: 4 x
+     --seq and 4) timed on each grid beside the unsharded path
+     (``serve_times``), with the peak memory per card against
+     ``serve.reckon``;
 and times the sharded call beside ``colored_sweep`` (in turns), the
 all-gathers, the gossip collectives over the model's parameters and the
 train step.  One JSON line closes; any failed check raises.
@@ -51,7 +66,10 @@ from ..data import synthetic_lm_stream
 from ..kernels import _build
 from ..models import init_params, loss_fn, make_train_step
 from ..optim import adamw, cosine_warmup
-from ..sharding import param_pspecs, param_shapes, steps as sharded
+from ..models import decode_step, init_cache, prefill
+from ..sharding import batch_pspecs, param_pspecs, param_shapes
+from ..sharding import serve as sharded_serve
+from ..sharding import steps as sharded
 from . import serve
 from .train import build
 
@@ -59,6 +77,16 @@ FSDP_ARCH = "nemotron-4-15b"
 FSDP_SHARE = 0.9  # of the card's memory that the reckoned cut may fill
 FSDP_STEPS = 2
 FSDP_TOL = (2e-5, 2e-5)  # absolute, relative
+SERVE_ARCHS = ("smollm-135m", "qwen1.5-32b")
+SERVE_SHARE = 0.3  # of the card that the unsharded float32 model may fill
+SERVE_STEPS = 4  # teacher-forced decode steps of the float32 check
+# Past the float32 bound, the sharded run's error against a float64 run of
+# the same weights may be at most this multiple of the unsharded run's (the
+# rule of chip_smoke's LM_WITNESS_FACTOR).  The split reorders float32 sums
+# only, so the two errors are of one size: qwen1.5-32b's came 1.02 apart on
+# four H100s (PERF.md), so 2 leaves room above that.
+SERVE_WITNESS_FACTOR = 2.0
+SERVE_B, SERVE_PROMPT, SERVE_GEN = 4, 512, 32  # bf16 timings at full width
 
 
 def _check(cond: bool, what: str) -> None:
@@ -352,6 +380,172 @@ def _fsdp_checks(ctx, args) -> dict:
     return out
 
 
+def serve_grids(world: int) -> list[tuple[int, int]]:
+    """(data, model) of the serving check's grids: 1 x W, and 2 x W/2 for an
+    even W > 2."""
+    return [(1, world)] + ([(2, world // 2)] if world > 2 and world % 2 == 0 else [])
+
+
+def serve_depth(cfg, card_bytes: int) -> int:
+    """The deepest cut of ``cfg`` whose float32 parameters fill at most
+    ``SERVE_SHARE`` of ``card_bytes`` (every layer alike)."""
+    shapes = param_shapes(dataclasses.replace(cfg, n_layers=1))
+    layer = sum(4 * int(np.prod(s)) for n, s in shapes.items() if n.startswith("layers."))
+    root = sum(4 * int(np.prod(s)) for n, s in shapes.items() if not n.startswith("layers."))
+    return max(0, min(cfg.n_layers, int((SERVE_SHARE * card_bytes - root) // layer)))
+
+
+def serve_times(prefill, decode, prompt: torch.Tensor, gen: int, dev: torch.device) -> dict:
+    """``prefill(prompt) -> (logits, cache)`` on a fresh cache and
+    ``decode(token, cache, position) -> (logits, cache)``: a warm-up prefill
+    and step, then the timed prefill and ``gen`` greedy steps (host clock,
+    each ending in a sync); their logits and the tokens."""
+    b, s0 = prompt.shape
+    logits, cache = prefill(prompt)
+    decode(torch.argmax(logits[:, -1:], dim=-1), cache, s0)
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill(prompt)
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    out, toks = [logits], []
+    t0 = time.perf_counter()
+    for i in range(gen):
+        logits, cache = decode(tok, cache, s0 + i)
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        out.append(logits)
+        toks.append(tok)
+    _sync(dev)
+    decode_s = time.perf_counter() - t0
+    return dict(prefill_s=prefill_s, decode_s=decode_s, tok_s=b * gen / decode_s, logits=out,
+                tokens=torch.cat(toks, dim=1))
+
+
+def _unsharded_logits(cfg, toks, prompt: int, max_seq: int, dev) -> list:
+    """``_teacher_forced`` of the unsharded model of ``cfg`` (weights from
+    seed 0), which is freed before it returns."""
+    params = init_params(cfg, 0, device=dev)
+    out = _teacher_forced(
+        cfg, lambda b: prefill(cfg, params, b, init_cache(cfg, toks.shape[0], max_seq,
+                                                          device=dev)),
+        lambda t, c, i: decode_step(cfg, params, t, c, i), toks, prompt)
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _teacher_forced(cfg, prefill_fn, decode_fn, toks, prompt: int) -> list:
+    logits, cache = prefill_fn({"tokens": toks[:, :prompt]})
+    out = [logits]
+    for t in range(SERVE_STEPS):
+        logits, cache = decode_fn(toks[:, prompt + t:prompt + t + 1], cache, prompt + t)
+        out.append(logits)
+    return out
+
+
+def _serve_checks(ctx, args) -> dict:
+    dev = ctx.device
+    grids = {g: sharded.make_grid(ctx, *g) for g in serve_grids(ctx.world)}
+    card = torch.cuda.get_device_properties(dev).total_memory if dev.type == "cuda" else None
+    out = {}
+    for arch in SERVE_ARCHS:
+        base = get_config(arch, variant="smoke" if args.variant == "smoke" else None)
+        depth = serve_depth(base, card) if card else base.n_layers
+        _check(depth >= 1, f"serve: no layer of {arch} fits the card")
+        cfg = dataclasses.replace(base, n_layers=depth, dtype="float32")
+        rng = np.random.default_rng(3)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                            (args.batch, args.seq + SERVE_STEPS)), device=dev)
+        max_seq = args.seq + SERVE_STEPS + 4
+        # the same weights in float64 (init_params draws in float32, then casts)
+        witness = _unsharded_logits(dataclasses.replace(cfg, dtype="float64"), toks, args.seq,
+                                    max_seq, dev)
+        params = init_params(cfg, 0, device=dev)
+        want = _teacher_forced(
+            cfg, lambda b: prefill(cfg, params, b, init_cache(cfg, args.batch, max_seq,
+                                                              device=dev)),
+            lambda t, c, i: decode_step(cfg, params, t, c, i), toks, args.seq)
+        plain_vs_f64 = max(_err(w, f) for w, f in zip(want, witness))
+        res = {"n_layers": depth, "float32": {}, "bf16": {},
+               "unsharded_vs_float64": plain_vs_f64}
+        for shape, grid in grids.items():
+            shards, _ = sharded.place(params, {}, param_pspecs(cfg, params, grid), grid)
+            pre = sharded_serve.build_prefill(cfg, grid, args.batch, max_seq)
+            dec = sharded_serve.build_decode(cfg, grid, args.batch, max_seq, prefill=pre)
+            got = _teacher_forced(
+                cfg, lambda b: pre(shards, b, sharded_serve.init_cache(cfg, grid, args.batch,
+                                                                       max_seq)),
+                lambda t, c, i: dec(shards, t, c, i), toks, args.seq)
+            rows = sharded.local_slice(torch.arange(args.batch, device=dev),
+                                       batch_pspecs(cfg, {"t": (args.batch,)}, grid)["t"], grid)
+            err, excess = 0.0, -1.0
+            for g, w in zip(got, want):
+                d = (g.double() - w[rows].double()).abs()
+                err = max(err, float(d.max()))
+                excess = max(excess, float((d - FSDP_TOL[0]
+                                            - FSDP_TOL[1] * w[rows].double().abs()).max()))
+            vs_f64 = max(_err(g, f[rows]) for g, f in zip(got, witness))
+            res["float32"][f"{shape[0]}x{shape[1]}"] = dict(
+                max_abs_err=err, within_bound=excess <= 0.0, vs_float64=vs_f64)
+            # past the bound, both float32 runs are held to the float64 one
+            _check(excess <= 0.0 or vs_f64 <= SERVE_WITNESS_FACTOR * plain_vs_f64,
+                   f"serve: {arch} on {shape} differs from unsharded by {err}, from float64 "
+                   f"by {vs_f64} (the unsharded float32 run: {plain_vs_f64})")
+            del shards, pre, dec
+        del params
+        # the LM launcher's geometry on the card; the smoke variant at --seq
+        full = args.variant == "full"
+        res["bf16"] = _serve_bf16(ctx, grids, dataclasses.replace(cfg, dtype="bfloat16"),
+                                  SERVE_PROMPT if full else args.seq,
+                                  SERVE_GEN if full else SERVE_STEPS)
+        out[arch] = res
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _serve_bf16(ctx, grids: dict, cfg, s0: int, gen: int) -> dict:
+    """``serve_times`` of the sharded path on each grid, then the unsharded
+    path, in bf16 at SERVE_B x ``s0`` and ``gen`` tokens; the peak memory of
+    each (the sharded run holds only the shards)."""
+    dev = ctx.device
+    b = SERVE_B
+    max_seq = s0 + gen + 1
+    prompt = torch.as_tensor(np.random.default_rng(4).integers(0, cfg.vocab_size, (b, s0)),
+                             device=dev)
+    out = {}
+    for shape, grid in grids.items():
+        params = init_params(cfg, 0, device=dev)
+        shards, _ = sharded.place(params, {}, param_pspecs(cfg, params, grid), grid)
+        del params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        pre = sharded_serve.build_prefill(cfg, grid, b, max_seq)
+        dec = sharded_serve.build_decode(cfg, grid, b, max_seq, prefill=pre)
+        r = serve_times(lambda p: pre(shards, {"tokens": p},
+                                      sharded_serve.init_cache(cfg, grid, b, max_seq)),
+                        lambda t, c, i: dec(shards, t, c, i), prompt, gen, dev)
+        out[f"{shape[0]}x{shape[1]}"] = dict(
+            prefill_s=r["prefill_s"], tok_s=r["tok_s"],
+            peak_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
+            reckoned=sharded_serve.reckon(cfg, grid, b, max_seq))
+        del shards, pre, dec, r
+    params = init_params(cfg, 0, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    r = serve_times(lambda p: prefill(cfg, params, {"tokens": p},
+                                      init_cache(cfg, b, max_seq, device=dev)),
+                    lambda t, c, i: decode_step(cfg, params, t, c, i), prompt, gen, dev)
+    out["unsharded"] = dict(
+        prefill_s=r["prefill_s"], tok_s=r["tok_s"],
+        peak_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None)
+    del params, r
+    return out
+
+
 def run(ctx: distributed.RankContext, args: argparse.Namespace) -> dict:
     out = {"world": ctx.world, "device": str(ctx.device)}
     if ctx.device.type == "cuda":
@@ -359,7 +553,8 @@ def run(ctx: distributed.RankContext, args: argparse.Namespace) -> dict:
     for name, fn in (("fields", lambda: _field_checks(ctx, args)),
                      ("gossip", lambda: _gossip_checks(ctx)),
                      ("train", lambda: _train_checks(ctx, args)),
-                     ("fsdp", lambda: _fsdp_checks(ctx, args))):
+                     ("fsdp", lambda: _fsdp_checks(ctx, args)),
+                     ("serve", lambda: _serve_checks(ctx, args))):
         t0 = time.perf_counter()
         out[name] = fn()
         out[name]["phase_s"] = time.perf_counter() - t0

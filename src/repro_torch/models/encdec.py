@@ -65,19 +65,26 @@ def _sinusoid(length: int, dim: int, device) -> torch.Tensor:
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
 
+def enc_layer_init(gen: torch.Generator, cfg: ModelConfig) -> EncLayer:
+    dev = gen.device
+    return EncLayer(L.norm_init(cfg, dev), L.attn_init(gen, cfg), L.norm_init(cfg, dev),
+                    L.mlp_init(gen, cfg, cfg.d_ff))
+
+
+def dec_layer_init(gen: torch.Generator, cfg: ModelConfig) -> DecLayer:
+    dev = gen.device
+    return DecLayer(L.norm_init(cfg, dev), L.attn_init(gen, cfg), L.norm_init(cfg, dev),
+                    L.attn_init(gen, cfg), L.norm_init(cfg, dev), L.mlp_init(gen, cfg, cfg.d_ff))
+
+
 def init_encdec_params(gen: torch.Generator, cfg: ModelConfig) -> EncDec:
-    dev, dt = gen.device, L.cdtype(cfg)
-
-    def norm():
-        return L.norm_init(cfg, dev)
-
-    enc = [EncLayer(norm(), L.attn_init(gen, cfg), norm(), L.mlp_init(gen, cfg, cfg.d_ff))
-           for _ in range(cfg.n_encoder_layers)]
-    dec = [DecLayer(norm(), L.attn_init(gen, cfg), norm(), L.attn_init(gen, cfg), norm(),
-                    L.mlp_init(gen, cfg, cfg.d_ff)) for _ in range(cfg.n_layers)]
+    dt = L.cdtype(cfg)
+    enc = [enc_layer_init(gen, cfg) for _ in range(cfg.n_encoder_layers)]
+    dec = [dec_layer_init(gen, cfg) for _ in range(cfg.n_layers)]
     embed = L._normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, dt)
     dec_pos = L._normal(gen, (cfg.max_target_positions, cfg.d_model), 0.02, dt)
-    return EncDec(embed, dec_pos, enc, dec, norm(), norm())
+    return EncDec(embed, dec_pos, enc, dec, L.norm_init(cfg, gen.device),
+                  L.norm_init(cfg, gen.device))
 
 
 def _kv(p: L.Attention, cfg: ModelConfig, enc: torch.Tensor):
@@ -147,28 +154,36 @@ def init_encdec_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, device)
     }
 
 
-def encdec_prefill(params: EncDec, cfg: ModelConfig, frames: torch.Tensor, cache: dict) -> dict:
+def encdec_prefill(params: EncDec, cfg: ModelConfig, frames: torch.Tensor, cache: dict, *,
+                   kv=_kv) -> dict:
     """Encode the frames and compute every decoder layer's cross K/V into a
-    new cache (the self rings are passed on as they are); no logits."""
+    new cache (the self rings are passed on as they are); no logits.
+    ``params`` is read in order (``enc_layers``, ``enc_norm``, each of
+    ``dec_layers``), so a view that gathers each module where it is read
+    serves; ``kv`` (``_kv``) gives a layer's cross K/V (``sharding.serve``
+    passes one that keeps the rank's part)."""
     enc = encode(params, cfg, frames)
-    kv = [_kv(lp.cross_attn, cfg, enc) for lp in params.dec_layers]
+    kvs = [kv(lp.cross_attn, cfg, enc) for lp in params.dec_layers]
     return {"self": cache["self"],
-            "cross_k": torch.stack([k for k, _ in kv]).to(cache["cross_k"].dtype),
-            "cross_v": torch.stack([v for _, v in kv]).to(cache["cross_v"].dtype)}
+            "cross_k": torch.stack([k for k, _ in kvs]).to(cache["cross_k"].dtype),
+            "cross_v": torch.stack([v for _, v in kvs]).to(cache["cross_v"].dtype)}
 
 
 def encdec_decode_step(params: EncDec, cfg: ModelConfig, token: torch.Tensor, cache: dict,
-                       position: int) -> tuple[torch.Tensor, dict]:
+                       position: int, *, attn=L.attn_decode, cross=_cross_attend
+                       ) -> tuple[torch.Tensor, dict]:
     """One token (B, 1) at absolute ``position`` (a host int; its learned
     position clipped to the last) -> (logits (B, 1, V), cache).  The self
-    rings are written IN PLACE (``layers.attn_decode``)."""
+    rings are written IN PLACE (``layers.attn_decode``).  ``attn`` and
+    ``cross`` are the self- and cross-attention (``sharding.serve`` passes
+    its split ones)."""
     pos_idx = min(max(position, 0), cfg.max_target_positions - 1)
     x = params.embed[token] + params.dec_pos[pos_idx][None, None, :]
     for i, lp in enumerate(params.dec_layers):
-        h, _ = L.attn_decode(lp.self_attn, cfg, L.apply_norm(lp.norm1, x), cache["self"][i],
-                             position, rope=False)
+        h, _ = attn(lp.self_attn, cfg, L.apply_norm(lp.norm1, x), cache["self"][i], position,
+                    rope=False)
         x = x + h
-        x = x + _cross_attend(lp.cross_attn, cfg, L.apply_norm(lp.norm_x, x),
-                              cache["cross_k"][i], cache["cross_v"][i])
+        x = x + cross(lp.cross_attn, cfg, L.apply_norm(lp.norm_x, x), cache["cross_k"][i],
+                      cache["cross_v"][i])
         x = x + L.mlp(lp.mlp, cfg, L.apply_norm(lp.norm2, x))
     return L.apply_norm(params.dec_norm, x) @ params.embed.T, cache

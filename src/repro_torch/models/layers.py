@@ -279,24 +279,36 @@ def attn_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor, cache: dict, po
     all three streams share, positions (B, 3, 1)), else at ``position``;
     not at all under ``rope=False``.
     """
-    b = x.shape[0]
     length = cache["k"].shape[1]
-    angles = None
-    if rope:
-        rp = position if rope_position is None else rope_position
-        shape = (b, 3, 1) if cfg.rope_mode == "mrope" else (b, 1)
-        angles = rope_angles(cfg, torch.full(shape, rp, dtype=torch.int32, device=x.device))
+    angles = decode_angles(cfg, x.shape[0], position, rope_position, x.device) if rope else None
     q, k, v = _qkv(p, cfg, x, angles, rope=rope)
     slot = position % length
     cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
     cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
     cache["pos"][:, slot] = position
-    kpos = cache["pos"]
+    valid = decode_mask(cache["pos"], position, window)
+    out = _sdpa(q, cache["k"], cache["v"], valid[:, None, :], cfg)
+    return dense(p.wo, out), cache
+
+
+def decode_angles(cfg: ModelConfig, b: int, position: int, rope_position: int | None,
+                  device) -> torch.Tensor:
+    """The RoPE angles of one decoded token per row: at ``rope_position``
+    where it is given (the M-RoPE streams' shared value), else at
+    ``position``."""
+    rp = position if rope_position is None else rope_position
+    shape = (b, 3, 1) if cfg.rope_mode == "mrope" else (b, 1)
+    return rope_angles(cfg, torch.full(shape, rp, dtype=torch.int32, device=device))
+
+
+def decode_mask(kpos: torch.Tensor, position: int, window: int = 0) -> torch.Tensor:
+    """Which ring slots (their positions ``kpos``, -1 where empty) a token
+    at ``position`` attends to: ``0 <= pos <= position`` and, with a
+    window, ``position - pos < window``."""
     valid = (kpos >= 0) & (kpos <= position)
     if window:
         valid &= (position - kpos) < window
-    out = _sdpa(q, cache["k"], cache["v"], valid[:, None, :], cfg)
-    return dense(p.wo, out), cache
+    return valid
 
 
 def prefill_into_cache(p: Attention, cfg: ModelConfig, x: torch.Tensor, angles, cache: dict,

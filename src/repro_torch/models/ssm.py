@@ -149,26 +149,42 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device) -> dict:
 
 
 def ssm_decode(
-    p: SSMMixer, cfg: ModelConfig, u: torch.Tensor, cache: dict
+    p: SSMMixer, cfg: ModelConfig, u: torch.Tensor, cache: dict, *, comm=None,
+    heads: slice | None = None, channels: slice | None = None,
 ) -> tuple[torch.Tensor, dict]:
-    """One-token recurrent step (u (B, 1, d_model)); O(1) in context length."""
+    """One-token recurrent step (u (B, 1, d_model)); O(1) in context length.
+
+    On a rank's part of a cache split over a model group
+    (``sharding.serve``): ``cache["state"]`` holds the ssm heads ``heads``
+    and ``cache["conv"]`` the conv channels ``channels`` (None: all of
+    them).  The depthwise conv is per channel, so the rank convolves its
+    channels and keeps their new tail, and ``comm.gather`` joins the conv
+    outputs (B, C); it updates its state heads, and their y are gathered
+    before the gated norm and ``out_proj``.  Returns (the output, the new
+    part)."""
     b = u.shape[0]
     di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    ch = slice(None) if channels is None else channels
+    hs = slice(None) if heads is None else heads
     z, xbc_raw, dt_raw = _split_proj(cfg, dense(p.in_proj, u))
     wd = wide(u.dtype)
-    window = torch.cat([cache["conv"], xbc_raw.to(cache["conv"].dtype)], dim=1)  # (B, K, C)
-    conv_out = torch.einsum("bkc,ck->bc", window.to(wd), p.conv_w[:, 0, :].to(wd))
+    # (B, K, C_r): the rank's channels' tail and their new value
+    window = torch.cat([cache["conv"], xbc_raw[..., ch].to(cache["conv"].dtype)], dim=1)
+    conv_out = torch.einsum("bkc,ck->bc", window.to(wd), p.conv_w[ch, 0, :].to(wd))
+    if channels is not None:
+        conv_out = comm.gather(conv_out, 1)
     xbc = F.silu(conv_out + p.conv_b.to(wd))  # (B, C)
-    x = xbc[:, :di].reshape(b, h, cfg.ssm_head_dim)
+    x = xbc[:, :di].reshape(b, h, cfg.ssm_head_dim)[:, hs]
     bmat = xbc[:, di : di + n]
     cmat = xbc[:, di + n :]
-    dt = F.softplus(dt_raw[:, 0].to(wd) + p.dt_bias)  # (B, h)
-    da = torch.exp(dt * -torch.exp(p.A_log)[None, :])
+    dt = F.softplus(dt_raw[:, 0, hs].to(wd) + p.dt_bias[hs])  # (B, h)
+    da = torch.exp(dt * -torch.exp(p.A_log[hs])[None, :])
     upd = (dt[:, :, None, None] * x[:, :, :, None]) * bmat[:, None, None, :]
     state = cache["state"] * da[:, :, None, None] + upd
-    y = torch.einsum("bn,bhpn->bhp", cmat, state) + p.D[None, :, None] * x
+    y = torch.einsum("bn,bhpn->bhp", cmat, state) + p.D[hs][None, :, None] * x
+    if heads is not None:
+        y = comm.gather(y, 1)
     y = y.reshape(b, 1, di).to(u.dtype)
     y = rms_norm_gated(p.norm_scale, y, z)
     new_cache = {"state": state, "conv": window[:, 1:, :]}
     return dense(p.out_proj, y), new_cache
-

@@ -139,7 +139,9 @@ def embed_inputs(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _head(params: Decoder, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    head = params.embed.T if params.lm_head is None else params.lm_head
+    head = params.lm_head
+    if head is None:
+        head = params.embed.T
     return L.apply_norm(params.final_norm, x) @ head
 
 
@@ -200,9 +202,21 @@ def init_decoder_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
             for i in range(cfg.n_layers)]
 
 
+def prefill_mixer(layer: MixerLayer | AttnLayer, cfg: ModelConfig, i: int, h: torch.Tensor,
+                  angles, c: dict) -> tuple[torch.Tensor, dict]:
+    """Layer i's attention or Mamba2 mixer over the normed prompt ``h``:
+    (its output, the layer's cache).  Attention writes its keys and values
+    into ``c`` in place (``layers.prefill_into_cache``); a mixer returns a
+    new dict."""
+    if cfg.layer_kind(i) == "m":
+        h, state, conv = S.ssm_forward_with_state(layer.ssm, cfg, h)
+        return h, {"state": state, "conv": conv.to(c["conv"].dtype)}
+    return L.prefill_into_cache(layer.attn, cfg, h, angles, c, window=cfg.sliding_window)
+
+
 def decoder_prefill(
     params: Decoder, cfg: ModelConfig, tokens: torch.Tensor, cache: list[dict], *,
-    patch_embeds: torch.Tensor | None = None,
+    patch_embeds: torch.Tensor | None = None, mixer=prefill_mixer, ffn=_ffn,
 ) -> tuple[torch.Tensor, list[dict]]:
     """Run the full prompt (behind the VLM's patch prefix, where given), fill
     the cache, return last-position logits (B, 1, V).
@@ -210,43 +224,46 @@ def decoder_prefill(
     Attention layers write their keys and values into ``cache``'s dicts in
     place (``layers.prefill_into_cache``); SSM layers get new dicts.  The
     prompt, its prefix included, must fit the attention cache.
+
+    ``params`` is read once per step in stack order (``embed``, each of
+    ``layers``, ``final_norm``, the head), so a view that gathers each
+    module where it is read serves as well as a ``Decoder``; ``mixer`` and
+    ``ffn`` (``prefill_mixer``, ``_ffn``) are the layer's two halves, which
+    ``sharding.serve`` replaces by its split ones.
     """
     x = embed_inputs(params, cfg, tokens, patch_embeds)
     b, s, _ = x.shape
     angles = _angles(cfg, b, s, x.device)
     new_cache = []
     for i, (layer, c) in enumerate(zip(params.layers, cache)):
-        h = L.apply_norm(layer.norm1, x)
-        if cfg.layer_kind(i) == "m":
-            h, state, conv = S.ssm_forward_with_state(layer.ssm, cfg, h)
-            c = {"state": state, "conv": conv.to(c["conv"].dtype)}
-        else:
-            h, c = L.prefill_into_cache(layer.attn, cfg, h, angles, c,
-                                        window=cfg.sliding_window)
+        h, c = mixer(layer, cfg, i, L.apply_norm(layer.norm1, x), angles, c)
         new_cache.append(c)
-        x, _ = _ffn(layer, cfg, i, x + h)
+        x, _ = ffn(layer, cfg, i, x + h)
     return _head(params, cfg, x[:, -1:]), new_cache
 
 
 def decoder_decode_step(
-    params: Decoder, cfg: ModelConfig, token: torch.Tensor, cache: list[dict], position: int
+    params: Decoder, cfg: ModelConfig, token: torch.Tensor, cache: list[dict], position: int,
+    *, attn=L.attn_decode, ssm=S.ssm_decode, ffn=_ffn,
 ) -> tuple[torch.Tensor, list[dict]]:
     """One token (B, 1) through the stack against the cache: (logits (B, 1, V),
     cache).  ``position`` is the token's absolute index, a host int, the
     VLM's patch prefix included; under M-RoPE the rotary position is
     derived from it (``mrope_decode_position``: decoded tokens are text).
     Attention layers write their slot of ``cache`` in place
-    (``layers.attn_decode``), the SSM stack reads no position."""
+    (``layers.attn_decode``), the SSM stack reads no position.  ``params``
+    is read as in ``decoder_prefill``; ``attn``, ``ssm`` and ``ffn`` are
+    the layer's parts (``sharding.serve`` passes its split ones)."""
     x = params.embed[token]
     rope_position = mrope_decode_position(cfg, position) if cfg.rope_mode == "mrope" else None
     new_cache = []
     for i, (layer, c) in enumerate(zip(params.layers, cache)):
         h = L.apply_norm(layer.norm1, x)
         if cfg.layer_kind(i) == "m":
-            h, c = S.ssm_decode(layer.ssm, cfg, h, c)
+            h, c = ssm(layer.ssm, cfg, h, c)
         else:
-            h, c = L.attn_decode(layer.attn, cfg, h, c, position, window=cfg.sliding_window,
-                                 rope_position=rope_position)
+            h, c = attn(layer.attn, cfg, h, c, position, window=cfg.sliding_window,
+                        rope_position=rope_position)
         new_cache.append(c)
-        x, _ = _ffn(layer, cfg, i, x + h)
+        x, _ = ffn(layer, cfg, i, x + h)
     return _head(params, cfg, x), new_cache

@@ -20,14 +20,15 @@ from repro_torch.launch import (daemon, multi_gpu, profile_field, profile_lm, pr
 from repro_torch.optim import optimizers, schedules
 from repro_torch import analysis, sharding
 from repro_torch.sharding import rules as sharding_rules
+from repro_torch.sharding import serve as sharding_serve
 from repro_torch.sharding import steps as sharding_steps
 from repro_torch.analysis import (alive_audit, ast_lint, dtype_audit, entries, launch_ledger,
                                   report, sync_audit)
 
-# the modules of the multi-device and training slice, and of the sharding slice
+# the modules of the multi-device and training slice, and of the sharding slices
 TRAIN_SLICE = (sop, consensus, distributed, tree, optim, optimizers, schedules, data, lm,
                train, profile_train, multi_gpu, models.model, sharding, sharding_rules,
-               sharding_steps)
+               sharding_steps, sharding_serve)
 
 # the modules of the hybrid, VLM and encoder-decoder slice
 MODEL_SLICE = (models.encdec, models.transformer, models.layers, convert, jamba_1_5_large_398b,
