@@ -24,7 +24,8 @@ Phases, one line or more each; any failure raises and exits non-zero:
              H=32, P=64, N=128, chunk 256), through the chunked scan at
              S=300 (padded to a chunk multiple), and at a ragged shape (P,
              N and chunk off the tensor-core tiles), rbf_gram of the conn query line against the
-             main path's 8400-anchor table; then each kernel's time, its
+             main path's 8400-anchor table and at five ragged shapes (N
+             off a multiple of 4, d from 1 to 8); then each kernel's time, its
              plain version's time, one PyTorch library call's time where
              there is one, and the least time the card could take
              (``bound_ms``, the largest of the bytes, the operations and the
@@ -162,6 +163,22 @@ Phases, one line or more each; any failure raises and exits non-zero:
              then the smoke variant in float32, two steps against
              ``make_train_step`` on the card (loss, parameters and moments
              2e-5 absolute + 2e-5 relative; whether bitwise);
+  3h2. main-remat ``cfg.remat`` (each super-block of ``cfg.block_len``
+             layers under a non-reentrant checkpoint) on the spec-placed
+             step over the group of one as a 1 x 1 grid: qwen1.5-32b at
+             full width (bf16, seed 0), batch 2 x 2048, its depth cut to
+             what both runs hold (4 layers on 80 GB; reckoned from the
+             shapes and printed, with the deepest cut with and without
+             remat): one warm-up and
+             two timed steps with remat off, "full" and "dots", each with
+             s/step, the peak memory (reset before each) and the losses;
+             the first loss bitwise in all three, the "full" peak below the
+             peak without remat and the "dots" peak at or between them,
+             counters set to 0 before and read after (all 0); then the smoke
+             variants of qwen1.5-32b and jamba-1.5-large-398b in float32
+             through ``make_train_step``, two AdamW steps, remat against
+             none under both policies (the loss bitwise; parameters and
+             moments 2e-5 absolute + 2e-5 relative; whether bitwise);
   3i. main-shard-serve sharded prefill and decode (``repro_torch.sharding.
              serve``: the cache placed by ``cache_pspecs``, each layer
              gathered on use) over the group of one as a 1 x 1 grid:
@@ -1041,7 +1058,13 @@ def time_ssd_intra(torch, ins, cs: int) -> dict:
                 library_ms=None, bound_f32_fma_ms=t_fma, bound_f32_fma_by=by_fma)
 
 
+# (M, N, d) off the main path's shape: N not a multiple of 4 (scalar stores),
+# ragged row and column tiles, every d up to MAX_DIM
+GRAM_RAGGED = ((37, 1001, 1), (100, 257, 3), (300, 8401, 5), (64, 1024, 7), (5, 6, 8))
+
+
 def check_gram(torch, x1, x2, gamma: float) -> float:
+    """The kernel at the main path's shape, then at GRAM_RAGGED's."""
     from repro_torch.kernels import gram
     from repro_torch.kernels.ops import rbf_gram
 
@@ -1051,8 +1074,20 @@ def check_gram(torch, x1, x2, gamma: float) -> float:
     err, over = max_err(got, ref), excess(got, ref, GRAM_TOL)
     check(got.shape == (x1.shape[0], x2.shape[0]) and over <= GRAM_TOL,
           f"rbf_gram: max |err| {err:.3g} (tol {GRAM_TOL} + {GRAM_TOL} |ref|)")
+    rng = np.random.default_rng(11)
+    ragged = 0.0
+    for m, n, d in GRAM_RAGGED:
+        a, b = (torch.as_tensor(rng.uniform(-1, 1, (k, d)), dtype=torch.float32, device="cuda")
+                for k in (m, n))
+        g, r = gram.rbf_gram(a, b, gamma=gamma), gram.rbf_gram_ref(a, b, gamma)
+        torch.cuda.synchronize()
+        check(g.shape == (m, n) and bool(torch.isfinite(g).all())
+              and excess(g, r, GRAM_TOL) <= GRAM_TOL,
+              f"rbf_gram at M={m} N={n} d={d}: max |err| {max_err(g, r):.3g}")
+        ragged = max(ragged, max_err(g, r))
     print(f"kernels: rbf_gram ok: {x1.shape[0]} queries x {x2.shape[0]} anchors, d="
-          f"{x1.shape[1]}, {got.numel() * 4 / 1e6:.1f} MB out, max |err| {err:.3g}")
+          f"{x1.shape[1]}, {got.numel() * 4 / 1e6:.1f} MB out, max |err| {err:.3g}; (M, N, d) "
+          f"in {list(GRAM_RAGGED)}: max |err| {ragged:.3g}")
     return err
 
 
@@ -2985,6 +3020,195 @@ def run_fsdp(torch, mods, ctx) -> tuple[dict, dict]:
     return launches, {"train": r, "vs_unsharded": cmp}
 
 
+# ---------------------------------------------------------------------------
+# Phase 3h2: cfg.remat, qwen1.5-32b trained at full width with and without it.
+# ---------------------------------------------------------------------------
+
+REMAT_ARCH = "qwen1.5-32b"
+# a 2 x 2048 batch: a layer's activations (~3.6 GB) against its ~7.4 GB of
+# state; at the launcher's 8 x 128 they are ~0.2 GB and remat shows nothing
+REMAT_B, REMAT_S = 2, 2048
+REMAT_STEPS = 3  # one warm-up, two timed
+REMAT_RUNS = (("off", False, "full"), ("full", True, "full"), ("dots", True, "dots"))
+REMAT_SMOKE = ("qwen1.5-32b", "jamba-1.5-large-398b")
+REMAT_TOL = (2e-5, 2e-5)  # absolute, relative
+
+
+def remat_reckon(torch, cfg, grid, b: int, s: int) -> dict:
+    """Bytes of the sharded step of ``cfg`` (a dense attention + SwiGLU
+    stack) at batch b x s, reckoned from the shapes: the state
+    (``multi_gpu.fsdp_bytes`` and ``fsdp_norm_bytes``); per layer, what
+    autograd keeps without remat (``layer``: the float32 softmax output and
+    its cast, the two norms' float32 input and normalised value, the
+    projections' inputs and outputs, the MLP's), what "dots" keeps (the
+    products' outputs) and what "full" keeps (the block's input); one
+    layer's backward transient (the float32 softmax gradients); and the
+    head's (the logits, their float32 copy, its exp and the gradient).  The
+    norm's float32 square of the largest gradient comes after the backward,
+    so a peak is the state (shards, moments, the gathered copy and all its
+    gradients) plus the larger of that and the activations: none = L layer
+    + head; dots = L dots + max(head, layer - dots + transient); full = L
+    input + max(head, layer + transient)."""
+    from repro_torch.launch import multi_gpu as mg
+
+    item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    t, d, f, v = b * s, cfg.d_model, cfg.d_ff, cfg.vocab_size
+    qd, kd = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    scores = b * cfg.n_heads * s * s
+    layer = (scores * (4 + item) + 2 * 2 * t * d * 4
+             + t * (2 * d + qd + 2 * kd + qd + kd) * item + t * (d + 4 * f) * item)
+    dots = scores * item + t * (qd + 2 * kd + qd + d + 2 * f + d) * item
+    inputs = t * d * item
+    transient = 2 * scores * 4
+    head = t * v * (item + 3 * 4)
+    state, norm = mg.fsdp_bytes(cfg, grid)["total"], mg.fsdp_norm_bytes(cfg)
+    n = cfg.n_layers
+    return dict(state=state, norm=norm, layer=layer, dots=dots, input=inputs,
+                transient=transient, head=head, off=state + max(norm, n * layer + head),
+                dots_peak=state + max(norm, n * dots + max(head, layer - dots + transient)),
+                full=state + max(norm, n * inputs + max(head, layer + transient)))
+
+
+def remat_depths(torch, grid, card: int) -> tuple[int, int]:
+    """(the deepest full-width cut of REMAT_ARCH whose reckoned peak without
+    remat fits ``multi_gpu.FSDP_SHARE`` of ``card``, the same with "full")."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import multi_gpu as mg
+
+    full = get_config(REMAT_ARCH)
+    deepest = {"off": 0, "full": 0}
+    for depth in range(1, full.n_layers + 1):
+        r = remat_reckon(torch, dataclasses.replace(full, n_layers=depth), grid, REMAT_B,
+                         REMAT_S)
+        for key in deepest:
+            if r[key] <= mg.FSDP_SHARE * card:
+                deepest[key] = depth
+        if r["full"] > mg.FSDP_SHARE * card:
+            break
+    return deepest["off"], deepest["full"]
+
+
+def remat_vs_plain(torch, arch: str) -> dict:
+    """The smoke variant of ``arch`` in float32 on the card, two AdamW steps
+    of ``make_train_step`` with remat off, then "full" and "dots": the losses
+    bitwise, every parameter and moment within REMAT_TOL; whether bitwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_lm_stream
+    from repro_torch.models import init_params, make_train_step
+    from repro_torch.optim import adamw, cosine_warmup
+
+    base = get_config(arch, variant="smoke")
+    stream = synthetic_lm_stream(base.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in stream.batch_at(i).items()}
+               for i in range(2)]
+
+    def run(cfg):
+        opt = adamw(cosine_warmup(3e-4, 1, 10))
+        params = init_params(cfg, 0, device="cuda")
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, dp_mode="none")
+        losses = []
+        for bt in batches:
+            params, state, m = step(params, state, bt)
+            losses.append(float(m["loss"]))
+        leaves = [p for _, p in params.named_parameters()]
+        return losses, leaves + list(state["mu"]) + list(state["nu"])
+
+    want_losses, want = run(dataclasses.replace(base, remat=False))
+    out = {}
+    for policy in ("full", "dots"):
+        losses, got = run(dataclasses.replace(base, remat=True, remat_policy=policy))
+        err, excess = 0.0, -1.0
+        for a, w in zip(got, want):
+            dd = (a.double() - w.double()).abs()
+            err = max(err, float(dd.max()))
+            excess = max(excess, float((dd - REMAT_TOL[0] - REMAT_TOL[1] * w.double().abs())
+                                       .max()))
+        bitwise = all(torch.equal(a, w) for a, w in zip(got, want))
+        check(losses == want_losses,
+              f"main-remat float32 {arch} {policy}: losses {losses} vs {want_losses}")
+        check(excess <= 0.0, f"main-remat float32 {arch} {policy}: a parameter or moment "
+              f"differs from the step without remat by {err}")
+        out[policy] = dict(losses=losses, max_abs_err=err, bitwise=bitwise)
+        print(f"main-remat float32 ({base.name}, block_len {base.block_len}, remat {policy}): "
+              f"2 AdamW steps vs remat off: loss {losses} (bitwise), max |d| over the "
+              f"parameters and moments {err:.3g} (bound 2e-5 + 2e-5 |x|), bitwise {bitwise}")
+    return out
+
+
+def run_remat(torch, mods, ctx) -> tuple[dict, dict]:
+    """Phase 3h2: qwen1.5-32b at full width on the spec-placed step over a
+    1 x 1 grid at 2 x 2048, remat off / "full" / "dots", the depth cut to
+    what both hold (reckoned first); then the smoke float32 checks."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import multi_gpu as mg
+    from repro_torch.sharding import steps as sharded
+
+    grid = sharded.make_grid(ctx, 1, 1)
+    card = torch.cuda.get_device_properties(0).total_memory
+    depth, depth_remat = remat_depths(torch, grid, card)
+    check(depth >= 1, "main-remat: no layer of the full-width model fits the card")
+    full = get_config(REMAT_ARCH)
+    cfg = dataclasses.replace(full, n_layers=depth)
+    check(full.remat and cfg.d_model == 5120 and cfg.n_heads == cfg.n_kv_heads == 40
+          and cfg.d_ff == 27392 and cfg.vocab_size == 152064 and cfg.qkv_bias
+          and not cfg.tie_embeddings and cfg.dtype == "bfloat16",
+          "main-remat: not the full-width qwen1.5-32b")
+    rec = remat_reckon(torch, cfg, grid, REMAT_B, REMAT_S)
+    gb = 1e9
+    print(f"main-remat: {cfg.name} at full width (d_model {cfg.d_model}, {cfg.n_heads} heads, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, q/k/v biases, untied head), depth cut "
+          f"{full.n_layers} -> {depth} (block_len {cfg.block_len}): "
+          f"{cfg.n_params() / 1e9:.2f} B parameters, batch {REMAT_B} x {REMAT_S}; reckoned: "
+          f"state {rec['state'] / gb:.1f} GB (and {rec['norm'] / gb:.1f} GB for the norm "
+          f"after the backward), per layer {rec['layer'] / gb:.2f} GB kept without "
+          f"remat, {rec['dots'] / gb:.2f} GB with dots, {rec['input'] / gb:.3f} GB with full, "
+          f"one layer's backward transient {rec['transient'] / gb:.2f} GB, the head "
+          f"{rec['head'] / gb:.2f} GB; peaks {rec['off'] / gb:.1f} GB without remat, "
+          f"{rec['dots_peak'] / gb:.1f} GB dots, {rec['full'] / gb:.1f} GB full, of "
+          f"{mg.FSDP_SHARE} x {card / gb:.1f} GB; the deepest cut {depth} without remat, "
+          f"{depth_remat} with full")
+    for mod in mods.values():
+        mod.launches = 0
+    runs = {}
+    for name, remat, policy in REMAT_RUNS:
+        run_cfg = dataclasses.replace(cfg, remat=remat, remat_policy=policy)
+        torch.cuda.empty_cache()
+        r = mg.fsdp_train(ctx, grid, run_cfg, REMAT_B, REMAT_S, steps=REMAT_STEPS)
+        timed = r["s_per_step"][1:]
+        runs[name] = dict(s_per_step=timed, warmup_s=r["s_per_step"][0],
+                          peak_bytes=r["peak_bytes"], losses=r["losses"],
+                          first_bitwise_loss_fn=r["first_bitwise"])
+        print(f"main-remat: train {cfg.name} ({depth} layers) remat {name}: "
+              + ", ".join(f"{x:.4f}" for x in timed) + " s/step after a "
+              f"{r['s_per_step'][0]:.4f} s warm-up step; peak memory "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB ({r['peak_bytes'] / gb:.1f} GB); loss "
+              + " -> ".join(f"{x:.4f}" for x in r["losses"]))
+    torch.cuda.synchronize()
+    launches = {name: mod.launches for name, mod in mods.items()}
+    print("main-remat: kernel launches " + json.dumps(launches))
+    check(all(v == 0 for v in launches.values()),
+          f"main-remat: a kernel without a backward was launched: {launches}")
+    firsts = {name: r["losses"][0] for name, r in runs.items()}
+    check(len(set(firsts.values())) == 1, f"main-remat: the first losses differ: {firsts}")
+    peaks = {name: r["peak_bytes"] for name, r in runs.items()}
+    check(peaks["full"] < peaks["off"],
+          f"main-remat: the full remat peak is not below the peak without it: {peaks}")
+    check(peaks["full"] <= peaks["dots"] <= peaks["off"],
+          f"main-remat: the dots peak is not between full and none: {peaks}")
+    ratio = {name: float(np.mean(r["s_per_step"]) / np.mean(runs["off"]["s_per_step"]))
+             for name, r in runs.items()}
+    print(f"main-remat: the first loss bitwise in all three ({firsts['off']!r}); peaks "
+          + ", ".join(f"{k} {v / 2**30:.2f} GiB" for k, v in peaks.items())
+          + f"; s/step over the step without remat: full {ratio['full']:.3f}, dots "
+          f"{ratio['dots']:.3f}")
+    torch.cuda.empty_cache()
+    smoke = {arch: remat_vs_plain(torch, arch) for arch in REMAT_SMOKE}
+    torch.cuda.empty_cache()
+    return launches, {"arch": cfg.name, "n_layers": depth, "deepest": {
+        "off": depth, "full": depth_remat}, "reckoned": rec, "runs": runs, "smoke_f32": smoke}
+
+
 SERVE_ARCH = "smollm-135m"
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 4, 512, 32  # the LM launcher's geometry
 SPLIT_L, SPLIT_PARTS, SPLIT_TOL = 544, 4, 2e-5
@@ -3977,6 +4201,9 @@ def run() -> int:
     }
     for name, t in timing.items():
         print(f"kernels: {name} timing: " + json.dumps(t))
+    t = timing["rbf_gram"]
+    print(f"kernels: rbf_gram {t['ms']:.6f} ms on the card (call {t['call_ms']:.6f}) against its "
+          f"{t['bound_ms']:.6f} ms {t['bound_by']} bound: {t['bound_ms'] / t['ms']:.3f} of it")
 
     # 2b. the invariant audit on the card -----------------------------------
     audit_readings = run_audit(torch)
@@ -4073,6 +4300,12 @@ def run() -> int:
     fsdp_readings["phase_s"] = time.perf_counter() - t0
     print("main-fsdp: " + json.dumps(fsdp_readings))
 
+    # 3h2. cfg.remat on the spec-placed step: qwen1.5-32b, 1 x 1 ------------
+    t0 = time.perf_counter()
+    remat_launches, remat_readings = run_remat(torch, mods, ctx)
+    remat_readings["phase_s"] = time.perf_counter() - t0
+    print("main-remat: " + json.dumps(remat_readings))
+
     # 3i. sharded prefill and decode on a 1 x 1 grid --------------------------
     t0 = time.perf_counter()
     serve_launches, serve_readings = run_shard_serve(torch, mods, ctx)
@@ -4139,6 +4372,7 @@ def run() -> int:
     by_path = {"field": launches, "stream": stream_launches, "churn": churn_launches,
                "faults": fault_launches, "daemon": daemon_launches, "prune": prune_launches,
                "sharded": sharded_launches, "train": train_launches, "fsdp": fsdp_launches,
+               "remat": remat_launches,
                "shard_serve": serve_launches, "lm": lm_launches,
                "dense": dense_launches, "moe": moe_launches} | later
 

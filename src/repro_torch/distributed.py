@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import tempfile
+import time
 
 import torch
 import torch.distributed as dist
@@ -97,17 +98,31 @@ def reduce_scatter_into(out: torch.Tensor, x: torch.Tensor, group=None) -> torch
     return out
 
 
-def spawn(fn, world: int, *args, device: str | torch.device = "cuda") -> list:
+def spawn(fn, world: int, *args, device: str | torch.device = "cuda",
+          timeout: float | None = None) -> list:
     """Run ``fn(ctx, *args)`` on ``world`` new local processes, one per rank,
     in one group; returns each rank's result, in rank order.
 
     ``fn`` must be importable by name (the processes are spawned, not
     forked).  On the CPU each rank gets ``cpu_count // world`` threads.
+    ``timeout``: seconds of wall clock for the whole run, after which every
+    rank still running is killed and ``TimeoutError`` raised (a collective
+    that never pairs up hangs its ranks); None waits for ever.
     """
     _device.resolve(device)  # raise here, not in every child
     with tempfile.TemporaryDirectory(prefix="repro_torch_spawn_") as tmp:
-        mp.start_processes(_rank_entry, args=(fn, world, str(device), tmp, args),
-                           nprocs=world, start_method="spawn", join=True)
+        procs = mp.start_processes(_rank_entry, args=(fn, world, str(device), tmp, args),
+                                   nprocs=world, start_method="spawn", join=False)
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while not procs.join(None if deadline is None
+                             else max(deadline - time.monotonic(), 0.0)):
+            if deadline is not None and time.monotonic() >= deadline:
+                for p in procs.processes:
+                    if p.is_alive():
+                        p.kill()
+                    p.join()
+                raise TimeoutError(f"spawn: {world} ranks of {fn.__name__} still running "
+                                   f"after {timeout} s; killed")
         return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
                 for r in range(world)]
 

@@ -331,11 +331,12 @@ def fsdp_vs_unsharded(ctx, grid: sharded.Grid, cfg, batch: int = 8, seq: int = 1
                 bitwise=bitwise)
 
 
-def fsdp_train(ctx, grid: sharded.Grid, cfg, batch: int = 8, seq: int = 128) -> dict:
-    """``FSDP_STEPS`` timed sharded steps of ``cfg`` (random weights from seed
-    0): s/step, the peak memory, the losses (finite), the first against
+def fsdp_train(ctx, grid: sharded.Grid, cfg, batch: int = 8, seq: int = 128,
+               steps: int = FSDP_STEPS) -> dict:
+    """``steps`` timed sharded steps of ``cfg`` (random weights from seed 0):
+    s/step, the peak memory, the losses (finite), the first against
     ``loss_fn`` of the unsharded model on the whole batch (2e-5)."""
-    batches = _fsdp_batches(cfg, batch, seq, FSDP_STEPS, ctx.device)
+    batches = _fsdp_batches(cfg, batch, seq, steps, ctx.device)
     opt = _fsdp_optimizer()
     if ctx.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(ctx.device)

@@ -39,12 +39,18 @@ BATCH, PROMPT_LEN, DECODE_STEPS, SEED, TOP = 4, 512, 8, 0, 8
 
 
 def _window(fn, dev: torch.device) -> dict:
-    """Profile one call of ``fn``: wall ms, device ms, idle share, top kernels."""
-    torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    """Profile one call of ``fn``: wall ms, device ms, idle share, top kernels.
+    On the CPU (a rehearsal) there is no device: device ms and the idle
+    share are None and no kernel is listed."""
+    cuda = dev.type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    if cuda:
+        torch.cuda.synchronize(dev)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize(dev)
+        if cuda:
+            torch.cuda.synchronize(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name: dict[str, list] = {}
@@ -52,7 +58,7 @@ def _window(fn, dev: torch.device) -> dict:
         slot = by_name.setdefault(e.name, [0.0, 0])
         slot[0] += e.device_time_total / 1e3  # us -> ms
         slot[1] += 1
-    device_ms = sum(v[0] for v in by_name.values())
+    device_ms = sum(v[0] for v in by_name.values()) if cuda else None
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
     return dict(
         wall_ms=wall_ms, device_ms=device_ms, launches=len(kernels),

@@ -14,14 +14,20 @@ The reference's ``repro.models.transformer`` scans stacked super-blocks of
 The cache is a list with one dict per layer: ``{"k", "v", "pos"}`` for
 attention, ``{"state", "conv"}`` for SSM.  The forward sums the MoE
 layers' router metrics over the stack, those after a mixer too; prefill
-and decode discard them, as the reference does.  The encoder-decoder is
-``models.encdec``.
+and decode discard them, as the reference does.  With ``cfg.remat`` the
+forward checkpoints each super-block of ``cfg.block_len`` layers, as the
+reference wraps its scan body in ``jax.checkpoint``; prefill and decode
+keep no activations for a backward and are never wrapped.  The
+encoder-decoder is ``models.encdec``.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from . import layers as L
 from . import ssm as S
@@ -164,19 +170,35 @@ def _zero_metrics(cfg: ModelConfig, device) -> dict[str, torch.Tensor]:
             "expert_load": torch.zeros(max(cfg.n_experts, 1), device=device)}
 
 
-def decoder_forward(
-    params: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
-    patch_embeds: torch.Tensor | None = None, moe_reduce=None,
-) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """Returns (logits (B, S_total, V), the MoE metrics summed over layers:
-    zero for a stack without MoE layers).  S_total counts the VLM's patch
-    prefix where ``patch_embeds`` is given.  ``moe_reduce`` is each MoE
-    layer's ``layers.moe_apply`` ``reduce``."""
-    x = embed_inputs(params, cfg, tokens, patch_embeds)
-    b, s, _ = x.shape
-    angles = _angles(cfg, b, s, x.device)
-    acc = _zero_metrics(cfg, x.device)
-    for i, layer in enumerate(params.layers):
+# The products whose outputs remat_policy="dots" saves: the counterpart of
+# the reference's jax.checkpoint_policies.dots_saveable (every dot_general's
+# output saved, everything else recomputed).  `@`, `dense` and the einsums
+# of `_sdpa` and `moe_apply` lower to these.
+DOTS = (torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm, torch.ops.aten.baddbmm)
+REMAT_POLICIES = ("full", "dots")
+
+
+def _dots_saveable(ctx, op, *args, **kwargs) -> ckpt.CheckpointPolicy:
+    if op.overloadpacket in DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(cfg: ModelConfig):
+    """``checkpoint``'s ``context_fn`` for ``cfg.remat_policy``."""
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}: one of {REMAT_POLICIES}")
+    if cfg.remat_policy == "dots":
+        return functools.partial(ckpt.create_selective_checkpoint_contexts, _dots_saveable)
+    return ckpt.noop_context_fn
+
+
+def _layers(params: Decoder, cfg: ModelConfig, lo: int, hi: int, x: torch.Tensor,
+            acc: dict[str, torch.Tensor], angles, moe_reduce):
+    """Layers ``lo .. hi - 1`` on the residual stream ``x``: (x, ``acc`` plus
+    each MoE layer's metrics, added layer by layer)."""
+    for i in range(lo, hi):
+        layer = params.layers[i]
         h = L.apply_norm(layer.norm1, x)
         if cfg.layer_kind(i) == "m":
             h = S.ssm_forward(layer.ssm, cfg, h)
@@ -185,6 +207,40 @@ def decoder_forward(
         x, m = _ffn(layer, cfg, i, x + h, moe_reduce)
         if m is not None:
             acc = {key: acc[key] + m[key] for key in acc}
+    return x, acc
+
+
+def decoder_forward(
+    params: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
+    patch_embeds: torch.Tensor | None = None, moe_reduce=None,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Returns (logits (B, S_total, V), the MoE metrics summed over layers:
+    zero for a stack without MoE layers).  S_total counts the VLM's patch
+    prefix where ``patch_embeds`` is given.  ``moe_reduce`` is each MoE
+    layer's ``layers.moe_apply`` ``reduce``.
+
+    With ``cfg.remat``, where a gradient is being recorded, each super-block
+    of ``cfg.block_len`` layers runs under a non-reentrant ``checkpoint``
+    (``autograd.grad`` needs non-reentrant): ``remat_policy="full"`` keeps
+    only the block's inputs and recomputes the rest in the backward,
+    ``"dots"`` also keeps the outputs of the ``DOTS`` products.  The metrics'
+    sum is carried through the blocks, so the values are those without
+    remat, bitwise.  Every rank recomputes its blocks in the same order, so
+    a ``moe_reduce`` collective re-run in the backward pairs up."""
+    remat = _remat_context(cfg) if cfg.remat else None
+    x = embed_inputs(params, cfg, tokens, patch_embeds)
+    b, s, _ = x.shape
+    angles = _angles(cfg, b, s, x.device)
+    acc = _zero_metrics(cfg, x.device)
+    n = len(params.layers)
+    if remat is None or not torch.is_grad_enabled() or not (
+            x.requires_grad or any(p.requires_grad for p in params.parameters())):
+        x, acc = _layers(params, cfg, 0, n, x, acc, angles, moe_reduce)
+    else:
+        for lo in range(0, n, cfg.block_len):
+            x, acc = ckpt.checkpoint(_layers, params, cfg, lo, min(lo + cfg.block_len, n), x,
+                                     acc, angles, moe_reduce, use_reentrant=False,
+                                     context_fn=remat)
     return _head(params, cfg, x), acc
 
 

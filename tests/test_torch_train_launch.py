@@ -119,3 +119,32 @@ def test_world_and_batch_are_checked():
     with pytest.raises(ValueError, match="must divide over 3 ranks"):
         train.main(["--device", "cpu", "--world", "3", "--batch", "8"])
 
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-32b", "mamba2-370m"])
+def test_profile_train_rehearses_its_windows_on_the_cpu(arch, capfd):
+    """``profile_train`` at the smoke variant on the CPU, depth cut to one
+    block: qwen1.5-32b sets ``remat``, so its forward and backward is
+    profiled with and without it; mamba2-370m does not.  No device time on
+    the CPU: "not measured", and no recompute share."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import profile_train
+
+    block = get_config(arch, variant="smoke").block_len
+    capfd.readouterr()
+    out = profile_train.main(["--arch", arch, "--variant", "smoke", "--layers", str(block),
+                              "--batch", "2", "--seq", "32", "--device", "cpu"])
+    lines = capfd.readouterr().out.strip().splitlines()
+    remat = arch == "qwen1.5-32b"
+    windows = ["forward_backward", "optimizer", "gossip"]
+    if remat:
+        windows.insert(1, "forward_backward_no_remat")
+    assert [ln.split(":")[0] for ln in lines if ln.split(":")[0] in out] == windows
+    assert (out["arch"], out["layers"], out["batch"], out["seq"]) == (
+        f"{arch}-smoke", block, 2, 32)
+    assert out["remat"] == ("full" if remat else None)
+    for key in windows:
+        assert out[key]["device_ms"] is None and out[key]["wall_ms"] > 0
+        assert "device not measured" in next(ln for ln in lines if ln.startswith(key + ":"))
+    assert ("recompute_share" in out) == remat and out.get("recompute_share") is None
+    assert lines[-1].startswith("{")
