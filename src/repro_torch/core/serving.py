@@ -27,6 +27,7 @@ import dataclasses
 
 import torch
 
+from .. import spans
 from . import plans
 from .sn_train import SNTrainProblem, SNTrainState, effective_coef
 
@@ -259,48 +260,54 @@ def knn_fuse(
         raise ValueError(f"engine must be 'plan' or 'cuda', got {engine!r}")
     if k < 1 or k > problem.n:
         raise ValueError(f"k must be in [1, n={problem.n}], got {k}")
-    if plan is None:
-        plan = make_serving_plan(problem, k=k)
-    if k > plan.k:
-        raise ValueError(
-            f"plan guarantees exact kNN only up to k={plan.k}; got k={k} "
-            "(rebuild with make_serving_plan(problem, k=...))"
-        )
-    cdt = _norm_compute_dtype(compute_dtype)
-    alive = problem.alive
-    if prune is not None:
-        alive = alive & prune.to(torch.bool)
-    dt = problem.nbr_pos.dtype
-    xq = torch.as_tensor(xq, dtype=dt, device=problem.device)
-    xq = xq[None] if xq.ndim == 1 else xq
-    positions = problem.topology.positions.to(dt)
-    if ecoef is None:
-        ecoef = effective_coef(problem, state)
-    if problem.batched:
-        nbr_pos, nbr_mask, coef = problem.nbr_pos, problem.nbr_mask, ecoef
-    else:
-        nbr_pos, nbr_mask, coef = problem.nbr_pos[None], problem.nbr_mask[None], ecoef[None]
-
-    if engine == "cuda":
-        from ..kernels.knn_fuse import knn_fuse_fused
-
-        if problem.kernel.name != "rbf":
+    with spans.span("serve.knn"):
+        if plan is None:
+            plan = make_serving_plan(problem, k=k)
+        if k > plan.k:
+            raise ValueError(
+                f"plan guarantees exact kNN only up to k={plan.k}; got k={k} "
+                "(rebuild with make_serving_plan(problem, k=...))"
+            )
+        if engine == "cuda" and problem.kernel.name != "rbf":
             raise NotImplementedError(
                 "engine='cuda' fuses the RBF kernel only; use engine='plan' "
                 "for other kernels"
             )
-        pos_pad = torch.cat([positions, positions.new_zeros((1, xq.shape[1]))])
-        out = knn_fuse_fused(
-            xq.contiguous(), query_cells(plan, xq), plan.cells, plan.cell_mask,
-            pos_pad, nbr_pos.contiguous(), nbr_mask.contiguous(), coef.contiguous(),
-            alive=alive, gamma=problem.kernel.gamma, k=k, compute_dtype=cdt,
-        )
-    else:
-        sel, valid = knn_select_valid(plan, positions, xq, k, alive)
-        out = _eval_selected(
-            problem.kernel, nbr_pos, nbr_mask, coef, sel, valid, xq, k,
-            compute_dtype=cdt,
-        )
+        with spans.span("serve.knn.prep"):
+            cdt = _norm_compute_dtype(compute_dtype)
+            alive = problem.alive
+            if prune is not None:
+                alive = alive & prune.to(torch.bool)
+            dt = problem.nbr_pos.dtype
+            xq = torch.as_tensor(xq, dtype=dt, device=problem.device)
+            xq = xq[None] if xq.ndim == 1 else xq
+            positions = problem.topology.positions.to(dt)
+            if ecoef is None:
+                ecoef = effective_coef(problem, state)
+            if problem.batched:
+                nbr_pos, nbr_mask, coef = problem.nbr_pos, problem.nbr_mask, ecoef
+            else:
+                nbr_pos, nbr_mask, coef = problem.nbr_pos[None], problem.nbr_mask[None], ecoef[None]
+            if engine == "cuda":  # the kernel's operands and its sentinel sensor row
+                xq, nbr_pos, nbr_mask, coef = (
+                    t.contiguous() for t in (xq, nbr_pos, nbr_mask, coef))
+                pos_pad = torch.cat([positions, positions.new_zeros((1, xq.shape[1]))])
+
+        if engine == "cuda":
+            from ..kernels.knn_fuse import knn_fuse_fused
+
+            with spans.span("serve.knn.cells"):
+                qcell = query_cells(plan, xq)
+            out = knn_fuse_fused(
+                xq, qcell, plan.cells, plan.cell_mask, pos_pad, nbr_pos, nbr_mask, coef,
+                alive=alive, gamma=problem.kernel.gamma, k=k, compute_dtype=cdt,
+            )
+        else:
+            sel, valid = knn_select_valid(plan, positions, xq, k, alive)
+            out = _eval_selected(
+                problem.kernel, nbr_pos, nbr_mask, coef, sel, valid, xq, k,
+                compute_dtype=cdt,
+            )
     return out if problem.batched else out[0]
 
 

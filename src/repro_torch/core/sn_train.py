@@ -48,6 +48,7 @@ import torch
 import torch.distributed as dist
 
 from .. import device as _device
+from .. import spans
 from ..distributed import all_gather_into
 from . import plans
 from .kernels_math import Kernel
@@ -626,17 +627,18 @@ def colored_sweep(
     link-delivery mask; dropped messages hold their last value.  All-True
     masks are bitwise identities, engine by engine.
     """
-    if problem.batched:
+    with spans.span("train.sweep"):
+        if problem.batched:
+            z, coef = _colored_core(
+                problem, problem.nbr_mask, problem.gram, problem.chol,
+                state.z, state.coef, n_sweeps, engine, alive, delivered,
+            )
+            return SNTrainState(z=z, coef=coef)
         z, coef = _colored_core(
-            problem, problem.nbr_mask, problem.gram, problem.chol,
-            state.z, state.coef, n_sweeps, engine, alive, delivered,
+            problem, problem.nbr_mask[None], problem.gram[None], problem.chol[None],
+            state.z[None], state.coef[None], n_sweeps, engine, alive, delivered,
         )
-        return SNTrainState(z=z, coef=coef)
-    z, coef = _colored_core(
-        problem, problem.nbr_mask[None], problem.gram[None], problem.chol[None],
-        state.z[None], state.coef[None], n_sweeps, engine, alive, delivered,
-    )
-    return SNTrainState(z=z[0], coef=coef[0])
+        return SNTrainState(z=z[0], coef=coef[0])
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ import dataclasses
 
 import torch
 
+from .. import spans
 from . import _build
 
 launches = 0
@@ -147,58 +148,62 @@ def color_sweep(
     writes out of bounds); the plain version raises on one.
     """
     global launches
-    if z.device.type == "cpu":
-        color_sweep_ref(
-            z, coef, nbr_idx, nbr_mask, gram, chol, lam_pad, alive_row, alive_z,
-            color_members, color_mask, delivered, n_sweeps,
+    with spans.span("kernel.color_sweep") as s:
+        if z.device.type == "cpu":
+            color_sweep_ref(
+                z, coef, nbr_idx, nbr_mask, gram, chol, lam_pad, alive_row, alive_z,
+                color_members, color_mask, delivered, n_sweeps,
+            )
+            s.count(steps=n_sweeps * color_members.shape[0])
+            return
+        req = _build.require
+        req(z.device.type == "cuda", f"color_step runs on cpu or cuda, got {z.device}")
+        req(z.ndim == 2 and coef.ndim == 3, "z must be (B, NZ) and coef (B, R, D)")
+        b, n_z = z.shape
+        _, r, d = coef.shape
+        req(color_members.ndim == 2, "color_members must be (C, M)")
+        n_colors, m = color_members.shape
+        req(coef.shape[0] == b, "coef and z disagree on B")
+        req(1 <= b <= 65535, f"color_sweep takes 1 <= B <= 65535 fields, got {b}")
+        req(tuple(nbr_idx.shape) == (r, d), "nbr_idx must be (R, D)")
+        req(tuple(nbr_mask.shape) == (b, r, d), "nbr_mask must be (B, R, D)")
+        req(tuple(gram.shape) == (b, r, d, d), "gram must be (B, R, D, D)")
+        req(tuple(chol.shape) == (b, r, d, d), "chol must be (B, R, D, D)")
+        req(tuple(lam_pad.shape) == (r,) and tuple(alive_row.shape) == (r,),
+            "lam_pad and alive_row must be (R,)")
+        req(tuple(alive_z.shape) == (n_z,), "alive_z must be (NZ,)")
+        req(tuple(color_mask.shape) == (n_colors, m), "color_mask must be (C, M)")
+        req(n_sweeps >= 0, f"n_sweeps must be >= 0, got {n_sweeps}")
+        req(delivered is None or tuple(delivered.shape) == (n_sweeps, r, d),
+            "delivered must be (n_sweeps, R, D)")
+        req(z.dtype in _DTYPES, f"color_step takes float32 or float64, got {z.dtype}")
+        for key, t in dict(coef=coef, gram=gram, chol=chol, lam_pad=lam_pad).items():
+            req(t.dtype == z.dtype, f"{key} is {t.dtype}, expected {z.dtype}")
+        req(nbr_idx.dtype == torch.int32 and color_members.dtype == torch.int32,
+            "nbr_idx and color_members must be int32")
+        for key, t in dict(nbr_mask=nbr_mask, alive_row=alive_row, alive_z=alive_z,
+                           color_mask=color_mask, delivered=delivered).items():
+            req(t is None or t.dtype == torch.bool, f"{key} must be bool")
+        _build.require_cuda_inputs(z.device, dict(
+            z=z, coef=coef, nbr_idx=nbr_idx, nbr_mask=nbr_mask, gram=gram, chol=chol,
+            lam_pad=lam_pad, alive_row=alive_row, alive_z=alive_z, color_members=color_members,
+            color_mask=color_mask, delivered=delivered,
+        ))
+        if n_sweeps == 0 or n_colors == 0 or m == 0 or d == 0:
+            s.count(steps=0)
+            return  # no color step has work to do
+        plan = launch_plan(z.element_size(), d, m)
+        lib = _build.library("color_step", _SIG)
+        p = _build.ptr
+        err = lib.color_sweep_launch(
+            _DTYPES[z.dtype], p(z), p(coef), p(nbr_idx), p(nbr_mask), p(gram),
+            p(chol), p(lam_pad), p(alive_row), p(alive_z), p(color_members),
+            p(color_mask), p(delivered), b, n_z, r, d, m, n_colors, n_sweeps,
+            plan.warps, plan.cluster, plan.smem_bytes, _build.stream(z.device),
         )
-        return
-    req = _build.require
-    req(z.device.type == "cuda", f"color_step runs on cpu or cuda, got {z.device}")
-    req(z.ndim == 2 and coef.ndim == 3, "z must be (B, NZ) and coef (B, R, D)")
-    b, n_z = z.shape
-    _, r, d = coef.shape
-    req(color_members.ndim == 2, "color_members must be (C, M)")
-    n_colors, m = color_members.shape
-    req(coef.shape[0] == b, "coef and z disagree on B")
-    req(1 <= b <= 65535, f"color_sweep takes 1 <= B <= 65535 fields, got {b}")
-    req(tuple(nbr_idx.shape) == (r, d), "nbr_idx must be (R, D)")
-    req(tuple(nbr_mask.shape) == (b, r, d), "nbr_mask must be (B, R, D)")
-    req(tuple(gram.shape) == (b, r, d, d), "gram must be (B, R, D, D)")
-    req(tuple(chol.shape) == (b, r, d, d), "chol must be (B, R, D, D)")
-    req(tuple(lam_pad.shape) == (r,) and tuple(alive_row.shape) == (r,),
-        "lam_pad and alive_row must be (R,)")
-    req(tuple(alive_z.shape) == (n_z,), "alive_z must be (NZ,)")
-    req(tuple(color_mask.shape) == (n_colors, m), "color_mask must be (C, M)")
-    req(n_sweeps >= 0, f"n_sweeps must be >= 0, got {n_sweeps}")
-    req(delivered is None or tuple(delivered.shape) == (n_sweeps, r, d),
-        "delivered must be (n_sweeps, R, D)")
-    req(z.dtype in _DTYPES, f"color_step takes float32 or float64, got {z.dtype}")
-    for key, t in dict(coef=coef, gram=gram, chol=chol, lam_pad=lam_pad).items():
-        req(t.dtype == z.dtype, f"{key} is {t.dtype}, expected {z.dtype}")
-    req(nbr_idx.dtype == torch.int32 and color_members.dtype == torch.int32,
-        "nbr_idx and color_members must be int32")
-    for key, t in dict(nbr_mask=nbr_mask, alive_row=alive_row, alive_z=alive_z,
-                       color_mask=color_mask, delivered=delivered).items():
-        req(t is None or t.dtype == torch.bool, f"{key} must be bool")
-    _build.require_cuda_inputs(z.device, dict(
-        z=z, coef=coef, nbr_idx=nbr_idx, nbr_mask=nbr_mask, gram=gram, chol=chol,
-        lam_pad=lam_pad, alive_row=alive_row, alive_z=alive_z, color_members=color_members,
-        color_mask=color_mask, delivered=delivered,
-    ))
-    if n_sweeps == 0 or n_colors == 0 or m == 0 or d == 0:
-        return  # no color step has work to do
-    plan = launch_plan(z.element_size(), d, m)
-    lib = _build.library("color_step", _SIG)
-    p = _build.ptr
-    err = lib.color_sweep_launch(
-        _DTYPES[z.dtype], p(z), p(coef), p(nbr_idx), p(nbr_mask), p(gram),
-        p(chol), p(lam_pad), p(alive_row), p(alive_z), p(color_members),
-        p(color_mask), p(delivered), b, n_z, r, d, m, n_colors, n_sweeps,
-        plan.warps, plan.cluster, plan.smem_bytes, _build.stream(z.device),
-    )
-    _build.check(err, lib, "color_step")
-    launches += 1
+        _build.check(err, lib, "color_step")
+        launches += 1
+        s.count(steps=n_sweeps * n_colors)
 
 
 def color_step(

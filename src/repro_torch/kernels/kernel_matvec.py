@@ -19,6 +19,7 @@ import dataclasses
 
 import torch
 
+from .. import spans
 from . import _build
 
 launches = 0
@@ -101,34 +102,35 @@ def kernel_matvec_batched(
     all float32.  CPU tensors run the plain version.
     """
     global launches
-    if xq.device.type == "cpu":
-        return kernel_matvec_ref(xq, anchors, coef, gamma)
-    req = _build.require
-    dev = xq.device
-    req(dev.type == "cuda", f"kernel_matvec runs on cpu or cuda, got {dev}")
-    req(xq.ndim == 2 and coef.ndim == 2, "xq must be (Q, d) and coef (B, N)")
-    q, d = xq.shape
-    b, n = coef.shape
-    req(1 <= d <= MAX_DIM, f"kernel_matvec takes 1 <= d <= {MAX_DIM}, got {d}")
-    if anchors.ndim == 2:
-        req(tuple(anchors.shape) == (n, d), "shared anchors must be (N, d)")
-        bstride = 0
-    else:
-        req(tuple(anchors.shape) == (b, n, d), "anchors must be (B, N, d)")
-        bstride = n * d
-    for key, t in dict(xq=xq, anchors=anchors, coef=coef).items():
-        req(t.dtype == torch.float32, f"{key} must be float32, got {t.dtype}")
-    _build.require_cuda_inputs(dev, dict(xq=xq, anchors=anchors, coef=coef))
-    req(b <= 65535, f"kernel_matvec takes at most 65535 fields, got {b}")
-    out = torch.empty((b, q), dtype=torch.float32, device=dev)
-    plan = launch_plan(q, b, n, d)
-    lib = _build.library("kernel_matvec", _SIG)
-    p = _build.ptr
-    err = lib.kernel_matvec_launch(
-        p(xq), p(anchors), p(coef), p(out), q, n, d, b, bstride, float(gamma),
-        plan.per_thread, plan.tiles, plan.cluster, plan.span, plan.padded_dim,
-        plan.smem_bytes, _build.stream(dev),
-    )
-    _build.check(err, lib, "kernel_matvec")
-    launches += 1
-    return out
+    with spans.span("kernel.kernel_matvec"):
+        if xq.device.type == "cpu":
+            return kernel_matvec_ref(xq, anchors, coef, gamma)
+        req = _build.require
+        dev = xq.device
+        req(dev.type == "cuda", f"kernel_matvec runs on cpu or cuda, got {dev}")
+        req(xq.ndim == 2 and coef.ndim == 2, "xq must be (Q, d) and coef (B, N)")
+        q, d = xq.shape
+        b, n = coef.shape
+        req(1 <= d <= MAX_DIM, f"kernel_matvec takes 1 <= d <= {MAX_DIM}, got {d}")
+        if anchors.ndim == 2:
+            req(tuple(anchors.shape) == (n, d), "shared anchors must be (N, d)")
+            bstride = 0
+        else:
+            req(tuple(anchors.shape) == (b, n, d), "anchors must be (B, N, d)")
+            bstride = n * d
+        for key, t in dict(xq=xq, anchors=anchors, coef=coef).items():
+            req(t.dtype == torch.float32, f"{key} must be float32, got {t.dtype}")
+        _build.require_cuda_inputs(dev, dict(xq=xq, anchors=anchors, coef=coef))
+        req(b <= 65535, f"kernel_matvec takes at most 65535 fields, got {b}")
+        out = torch.empty((b, q), dtype=torch.float32, device=dev)
+        plan = launch_plan(q, b, n, d)
+        lib = _build.library("kernel_matvec", _SIG)
+        p = _build.ptr
+        err = lib.kernel_matvec_launch(
+            p(xq), p(anchors), p(coef), p(out), q, n, d, b, bstride, float(gamma),
+            plan.per_thread, plan.tiles, plan.cluster, plan.span, plan.padded_dim,
+            plan.smem_bytes, _build.stream(dev),
+        )
+        _build.check(err, lib, "kernel_matvec")
+        launches += 1
+        return out

@@ -25,6 +25,7 @@ import ctypes
 
 import torch
 
+from .. import spans
 from . import _build
 from .ops import bucket_rows
 
@@ -112,27 +113,29 @@ def knn_fuse_fused(
     Returns (B, Q), or ((B, Q), (Q, k) picks) with ``with_selection``.
     """
     global launches
-    if compute_dtype is not None:
-        nbr_pos = nbr_pos.to(compute_dtype)
-    q = xq.shape[0]
-    if alive is None:
-        alive = torch.ones((nbr_pos.shape[1],), dtype=torch.bool, device=xq.device)
-    q_pad = bucket_rows(q)
-    if q_pad != q:
-        xq = torch.cat([xq, xq.new_zeros((q_pad - q, xq.shape[1]))])
-        qcell = torch.cat([qcell, qcell.new_zeros((q_pad - q,))])
+    with spans.span("kernel.knn_fuse") as s:
+        if compute_dtype is not None:
+            nbr_pos = nbr_pos.to(compute_dtype)
+        q = xq.shape[0]
+        if alive is None:
+            alive = torch.ones((nbr_pos.shape[1],), dtype=torch.bool, device=xq.device)
+        q_pad = bucket_rows(q)
+        s.count(rows=q, padded=q_pad - q)
+        if q_pad != q:
+            xq = torch.cat([xq, xq.new_zeros((q_pad - q, xq.shape[1]))])
+            qcell = torch.cat([qcell, qcell.new_zeros((q_pad - q,))])
 
-    if xq.device.type == "cpu":
-        out, sel = knn_fuse_ref(
-            xq, qcell, cells, cell_mask, alive, spos, nbr_pos, nbr_mask, coef,
-            gamma=gamma, k=k,
-        )
-    else:
-        out, sel = _launch(
-            xq, qcell, cells, cell_mask, alive, spos, nbr_pos, nbr_mask, coef,
-            gamma, k, with_selection,
-        )
-        launches += 1
+        if xq.device.type == "cpu":
+            out, sel = knn_fuse_ref(
+                xq, qcell, cells, cell_mask, alive, spos, nbr_pos, nbr_mask, coef,
+                gamma=gamma, k=k,
+            )
+        else:
+            out, sel = _launch(
+                xq, qcell, cells, cell_mask, alive, spos, nbr_pos, nbr_mask, coef,
+                gamma, k, with_selection,
+            )
+            launches += 1
     if with_selection:
         return out[:, :q], sel[:q]
     return out[:, :q]

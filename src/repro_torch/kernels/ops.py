@@ -8,6 +8,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from .. import spans
 from .gram import rbf_gram as _rbf_gram
 from .kernel_matvec import kernel_matvec_batched
 from .ssd_intra import BLOCK_H, ssd_intra
@@ -32,18 +33,20 @@ def kernel_matvec(
     field returns (B, Q); a single field's (N,) coef returns (Q,).  Queries
     are padded to their ``bucket_rows`` bucket and sliced back.
     """
-    q = xq.shape[0]
-    xq = xq.to(torch.float32)
-    pad = bucket_rows(q) - q
-    if pad:
-        xq = torch.cat([xq, xq.new_zeros((pad, xq.shape[1]))])
-    anchors = anchors.to(torch.float32).contiguous()
-    coef = coef.to(torch.float32)
-    single = coef.ndim == 1
-    out = kernel_matvec_batched(
-        xq.contiguous(), anchors, (coef[None] if single else coef).contiguous(),
-        gamma=gamma,
-    )
+    with spans.span("serve.conn") as s:
+        q = xq.shape[0]
+        xq = xq.to(torch.float32)
+        pad = bucket_rows(q) - q
+        s.count(rows=q, padded=pad)
+        if pad:
+            xq = torch.cat([xq, xq.new_zeros((pad, xq.shape[1]))])
+        anchors = anchors.to(torch.float32).contiguous()
+        coef = coef.to(torch.float32)
+        single = coef.ndim == 1
+        out = kernel_matvec_batched(
+            xq.contiguous(), anchors, (coef[None] if single else coef).contiguous(),
+            gamma=gamma,
+        )
     return out[0, :q] if single else out[:, :q]
 
 
